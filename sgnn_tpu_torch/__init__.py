@@ -5,12 +5,13 @@ package mirrors its layout module by module:
 
   nn/        Linear, MLP, LayerNorm, Embedding (reference state_dict layout)
   models/    readable EPD forward and the flat (block-diagonal) forward
-  ops/       radius-neighbor search, the fused edge block (CUDA kernel)
+  ops/       radius-neighbor search, the fused edge block (forward and
+             backward CUDA kernels), the gather-backward sender gather
   csrc/      hand-written CUDA C++ kernels for sm_90a
   kernels/   nvcc build + ctypes binding of csrc/
-  physics/   simulator features, Euler integration, rollout
-  data/      synthetic raw data, dataset builder, trajectory loader
-  train/     config, checkpoints, the validation/rollout entry point
+  physics/   simulator features, training noise, Euler integration, rollout
+  data/      synthetic raw data, dataset builder, batch and trajectory loaders
+  train/     config, checkpoints, metrics, the train/validation/rollout entry point
   utils/     JAX-params <-> state_dict mapping, device and memory helpers
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``. On

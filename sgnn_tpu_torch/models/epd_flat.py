@@ -14,7 +14,16 @@ MLP (``num_mlp_layers == 1``, the single-scale configuration).
 
 ``compute_dtype=torch.bfloat16`` keeps the edge latents and gathered
 sender projections in bf16; node latents, LayerNorm moments, the node
-update and the decoder stay f32.
+update and the decoder stay f32. The forward is differentiable. Every
+product outside the kernel takes f32 operands (the receiver and sender
+projections, the node update on ``agg`` widened to f32) and the kernel
+emits its weight gradients in f32, so in bf16 no weight gradient is
+rounded through bf16 on its way to the optimizer: the contract of the
+JAX module's ``_dot_wf32``.
+
+With ``rev=(rev_pos, rev_ok)`` (``ops/sym_gather.reverse_edge_positions``
+of a symmetric graph) each layer's sender gather is ``sym_gather``, whose
+backward is a gather in place of ``index_select``'s scatter-add.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from sgnn_tpu_torch.models.encode_process_decode import (
 )
 from sgnn_tpu_torch.nn.core import layer_norm
 from sgnn_tpu_torch.ops.edge_block import fused_edge_block
+from sgnn_tpu_torch.ops.sym_gather import sym_gather
 
 
 def flatten_batch_graph(
@@ -61,15 +71,17 @@ def encode_process_decode_apply_flat(
     degrees: torch.Tensor,  # f32[M, 1]
     k: int,
     compute_dtype: Optional[torch.dtype] = None,
+    rev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Full forward over one flat graph; returns f32[M, node_out]."""
+    """Full forward over one flat graph; returns f32[M, node_out].
+    rev: optional (rev_pos [M, K], rev_ok [M, K]) reverse-edge index."""
     m = node_features.shape[0]
     maskf = _slot_mask(degrees, m, k)
     x = mlp_ln_apply(epd._encoder.node_fn, node_features)
     e = mlp_ln_apply(epd._encoder.edge_fn, edge_features) * maskf
     if compute_dtype is not None:
         e = e.to(compute_dtype)
-    return _process_decode(epd, x, e, senders, degrees, k, compute_dtype)
+    return _process_decode(epd, x, e, senders, degrees, k, compute_dtype, rev)
 
 
 def _process_decode(
@@ -80,6 +92,7 @@ def _process_decode(
     degrees: torch.Tensor,  # f32[M, 1]
     k: int,
     compute_dtype: Optional[torch.dtype],
+    rev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Processor layers (fused edge block + node update) and decoder."""
     d = x.shape[-1]
@@ -95,7 +108,10 @@ def _process_decode(
         proj_j = x @ w_j
         if compute_dtype is not None:
             proj_j = proj_j.to(compute_dtype)
-        xj = proj_j.index_select(0, senders)  # [M*K, H]
+        if rev is not None:
+            xj = sym_gather(proj_j, senders, rev[0], rev[1])  # [M*K, H]
+        else:
+            xj = proj_j.index_select(0, senders)
         w2 = edge_mlp.linears[1]
         e, agg = fused_edge_block(
             e,

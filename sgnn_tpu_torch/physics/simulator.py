@@ -1,6 +1,7 @@
 """The learned particle simulator: features, graph, model, integration.
 
-Port of ``sgnn_tpu/physics/simulator.py`` (the inference path). The
+Port of ``sgnn_tpu/physics/simulator.py`` (inference and the training
+forward ``predict_accelerations[_batched]``). The
 parameters live in ``LearnedSimulator``, an ``nn.Module`` whose
 ``state_dict()`` keys are the reference ``LearnedSimulator`` layout
 (``_encode_process_decode.*`` and, with several particle types,
@@ -36,6 +37,7 @@ from sgnn_tpu_torch.ops.neighbors import (
     radius_neighbors,
     radius_neighbors_grid_batched,
 )
+from sgnn_tpu_torch.ops.sym_gather import reverse_edge_positions
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -67,7 +69,7 @@ def make_norm_stats(metadata: dict, noise_std: float, device: Device = "cpu") ->
 @dataclasses.dataclass(frozen=True)
 class SimulatorConfig:
     """Static hyperparameters of the single-scale simulator (the fields of
-    the JAX ``SimulatorConfig`` that inference reads)."""
+    the JAX ``SimulatorConfig`` that inference and training read)."""
 
     dim: int = 2
     latent_dim: int = 64
@@ -81,6 +83,10 @@ class SimulatorConfig:
     # physical slot count; defaults to max_neighbors (same semantics while
     # every degree fits)
     neighbor_slots: Optional[int] = None
+    # gather-based backward for the sender gathers (ops/sym_gather.py);
+    # valid only when the graph is symmetric: the dataset's max degree
+    # fits the slots, so the neighbour cap never binds
+    symmetric_gather: bool = False
     # 'float32' or 'bfloat16': dtype of the edge latents in the flat path
     compute_dtype: str = "float32"
     wall_x: float = -2.0
@@ -88,6 +94,10 @@ class SimulatorConfig:
     domain: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
     # max occupants read per search cell; must cover the densest cell
     cell_capacity: int = 8
+    # capacity knobs of the JAX package, not ported: set, forward_batched
+    # raises (banded gathers and rematerialisation, ROADMAP.md Queue A item 7)
+    band_nodes: Optional[int] = None
+    remat: object = False
 
     @property
     def slots(self) -> int:
@@ -260,13 +270,21 @@ def forward_batched(
     With a spatial domain the radius search runs batched-flat (one
     cell-list search over all graphs); without one, each graph is
     preprocessed on its own (brute-force search) and flattened.
+    With ``cfg.symmetric_gather`` and a domain, the sender gathers take
+    the reverse-edge index built from the neighbour lists (the JAX
+    module's unfused route; its packed fusion is not ported).
     Returns (normalized accelerations [B, N, dim], strain [B, N]).
     """
+    if cfg.band_nodes is not None or cfg.remat:
+        raise NotImplementedError(
+            "band_nodes and remat are not ported yet (ROADMAP.md, Queue A item 7: capacity knobs)"
+        )
     b, n = position_sequences.shape[:2]
     dev = position_sequences.device
     if node_mask is None:
         node_mask = torch.ones((b, n), dtype=torch.bool, device=dev)
     k = cfg.slots
+    rev = None
     if cfg.domain is not None:
         last = position_sequences[..., -1, :]
         nl = radius_neighbors_grid_batched(
@@ -283,6 +301,8 @@ def forward_batched(
         ef = _edge_features(last.reshape(b * n, -1), nl, cfg.connectivity_radius)
         senders_flat = nl.senders.reshape(-1)
         degrees = nl.mask.sum(dim=-1, keepdim=True).float()
+        if cfg.symmetric_gather:
+            rev = reverse_edge_positions(nl.senders, nl.mask)
     else:
         per_graph = [
             encoder_preprocess(sim, cfg, stats, position_sequences[i], particle_types[i], node_mask[i])
@@ -301,8 +321,48 @@ def forward_batched(
         degrees,
         k,
         compute_dtype=cfg.torch_compute_dtype,
+        rev=rev,
     ).reshape(b, n, -1)
     return pred[..., : cfg.dim], pred[..., -1]
+
+
+def predict_accelerations(
+    sim: LearnedSimulator,
+    cfg: SimulatorConfig,
+    stats: NormStats,
+    next_positions: torch.Tensor,  # [N, dim]
+    position_sequence_noise: torch.Tensor,  # [N, S, dim]
+    position_sequence: torch.Tensor,  # [N, S, dim]
+    particle_types: torch.Tensor,
+    node_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training forward through the readable per-graph model: (predicted
+    and target normalized accelerations, strain). The target is taken on
+    the noise-adjusted next position, so the velocity noise cancels."""
+    noisy = position_sequence + position_sequence_noise
+    nf, ef, nl = encoder_preprocess(sim, cfg, stats, noisy, particle_types, node_mask)
+    pred = encode_process_decode_apply(sim._encode_process_decode, nf, ef, nl)
+    target = inverse_decoder_postprocess(stats, next_positions + position_sequence_noise[:, -1], noisy)
+    return pred[:, : cfg.dim], target, pred[:, -1]
+
+
+def predict_accelerations_batched(
+    sim: LearnedSimulator,
+    cfg: SimulatorConfig,
+    stats: NormStats,
+    next_positions: torch.Tensor,  # [B, N, dim]
+    position_sequence_noise: torch.Tensor,  # [B, N, S, dim]
+    position_sequences: torch.Tensor,  # [B, N, S, dim]
+    particle_types: torch.Tensor,  # [B, N]
+    node_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched training forward through the flat model (the contract of
+    ``predict_accelerations``)."""
+    noisy = position_sequences + position_sequence_noise
+    pred_acc, pred_strain = forward_batched(sim, cfg, stats, noisy, particle_types, node_mask)
+    next_adjusted = next_positions + position_sequence_noise[..., -1, :]
+    target_acc = inverse_decoder_postprocess(stats, next_adjusted, noisy)
+    return pred_acc, target_acc, pred_strain
 
 
 def predict_positions_flat(

@@ -38,3 +38,7 @@ class ResourceMonitor:
         self._start = None
         peak = torch.cuda.max_memory_allocated(self.device) / 1e6 if self._cuda else 0.0
         return {"elapsed_time": elapsed, "max_memory_mb": peak}
+
+    def get_current_memory(self) -> float:
+        """MB of device memory allocated now (0 on the CPU)."""
+        return torch.cuda.memory_allocated(self.device) / 1e6 if self._cuda else 0.0

@@ -98,7 +98,7 @@ def _cpu_args(rng, r=8, k=4, d=16):
         (lambda a: a.__setitem__(4, a[4].t()), ValueError),  # we not contiguous
         (lambda a: a.__setitem__(2, a[2].double()), TypeError),  # proj_i f64
         (lambda a: a.__setitem__(1, a[1].to(torch.bfloat16)), TypeError),  # mixed e/xj
-        (lambda a: a[4].requires_grad_(True), NotImplementedError),  # no backward yet
+        (lambda a: a[3].requires_grad_(True), NotImplementedError),  # degrees carry no gradient
     ],
 )
 def test_launch_checks_refuse_bad_inputs(rng, mutate, error):

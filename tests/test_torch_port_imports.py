@@ -50,6 +50,11 @@ def test_predict_needs_cuda_without_a_device(no_cuda):
         ttrain.predict(TrainConfig(mode="rollout", model_file="model-best-000000"))
 
 
+def test_train_needs_cuda_without_a_device(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.train(TrainConfig())
+
+
 def test_entry_points_need_cuda_without_a_device(no_cuda):
     cfg = tsim.SimulatorConfig(latent_dim=8, num_message_passing_steps=1)
     with pytest.raises(RuntimeError):
@@ -78,7 +83,7 @@ def test_rollout_refuses_a_simulator_on_another_device():
 
 
 def test_kernel_sources_and_build_paths():
-    assert "edge_block_fwd" in build.sources()
+    assert {"edge_block_fwd", "edge_block_bwd"} <= set(build.sources())
     lib = build.library_path("edge_block_fwd")
     assert lib.parent == REPO / "build" / "kernels"  # ignored by .gitignore's build/
     assert lib.name.startswith("libedge_block_fwd-") and lib.suffix == ".so"

@@ -20,7 +20,7 @@ from sgnn_tpu_torch.data.synthetic import generate_synthetic_raw_dataset
 from sgnn_tpu_torch.physics import rollout as troll
 from sgnn_tpu_torch.physics import simulator as tsim
 from sgnn_tpu_torch.train import train as ttrain
-from sgnn_tpu_torch.train.checkpoint import CheckpointManager
+from sgnn_tpu_torch.train.checkpoint import CheckpointManager, train_state
 from sgnn_tpu_torch.train.config import TrainConfig
 from sgnn_tpu_torch.utils.jax_params import state_dict_from_jax, state_dict_to_jax
 
@@ -185,7 +185,7 @@ def _save_random_model(root, cfg):
     md = ttrain.load_metadata(root / "data")
     sim = tsim.simulator_init(ttrain.simulator_config_from(cfg, md),
                               generator=torch.Generator().manual_seed(0), device="cpu")
-    CheckpointManager(root / "models" / cfg.run_name).save_best(sim.state_dict(), 0, float("inf"))
+    CheckpointManager(root / "models" / cfg.run_name).save_best(train_state(sim), 0, float("inf"))
     return sim
 
 
@@ -234,5 +234,7 @@ def test_main_cli(tiny_data, tmp_path):
     summary = ttrain.main(["--config", str(yml), "--mode", "valid", "--model_file", "model-best-000000",
                            "--device", "cpu"])
     assert np.isfinite(summary["total"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--config", str(yml), "--mode", "train", "--device", "cpu"])
+    # --mode train trains the tiny config on the CPU
+    yml.write_text(yml.read_text() + "ntraining_steps: 4\nnsave_steps: 2\nlog_every: 2\nbatch_size: 2\n")
+    result = ttrain.main(["--config", str(yml), "--mode", "train", "--device", "cpu"])
+    assert result["step"] == 4 and np.isfinite(result["lowest_eval_loss"])
