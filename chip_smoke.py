@@ -32,8 +32,28 @@ each of which raises on failure:
      and on B's graph sym_gather's backward must match index_select's;
   6. rollout: ``predict`` in rollout mode from the checkpoint each
      training run wrote (A in f32, B in bf16), counting the forward
-     kernel's launches; the f32 run's first steps are held against the
-     same rollout on the CPU, and a warm rollout is profiled.
+     kernel's launches; each of the f32 run's first steps is held against
+     the same step on the CPU from the card's window, and a warm rollout
+     is profiled;
+  7. row gather: the three row-gather kernels against their plain
+     version, bit for bit, at the probe's shape (f32, bf16; int32), at
+     the multi-scale model's sender gathers (f32, bf16; int64, the
+     graph's own indices) and at ragged sizes with clamped indices; then
+     each timed beside ``index_select`` and its bound (device time: the
+     calls captured in one CUDA graph, its replay between CUDA events;
+     and the same calls launched one by one from the host);
+  8. probe: the ported gather probe (``sgnn_tpu_torch.scripts.
+     gather_kernel_probe``) in bf16 and f32, counting each kernel's
+     launches;
+  9. multi-scale rollout: ``train_multi_scale.main`` in rollout mode at
+     the values of configs/taylor2d_multi_scale.yaml (10 M2M layers,
+     hidden 128) from a checkpoint of seeded initial weights, for the
+     dense layout (``ms_dense: auto``) in f32 and bf16 and for COO in
+     f32; each run must launch ``row_gather`` exactly 2 x (blocks) per
+     step; the f32 runs' first steps are held against the same rollout
+     on the CPU, the bf16 run's first forward against the CPU's within
+     twice the CPU's own bf16-vs-f32 gap, and a warm rollout of each is
+     profiled.
 
 The last lines are the kernel summary (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -75,9 +95,19 @@ BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0**-4, 2.0**-7)}
 # most a few blocks per SM).
 SUM_RTOL = {"float32": 2e-5, "bfloat16": 1e-5}
 # f32 rollout on the card vs on the CPU, first steps: sums in another order
-# through 5 layers, positions of |x| < 64 carry an f32 ulp of 7.6e-6.
+# through 5 layers, positions of |x| < 64 carry an f32 ulp of 7.6e-6. The
+# multi-scale rollout is held to the same: its sums run through 12 blocks of
+# 3-layer MLPs at width 128, and index_add_ on the card adds with atomics in
+# no fixed order, but positions move by the normalised acceleration times
+# acc_std, so the outputs' f32 rounding (|x| < 64, strain O(1)) sets the error.
 ROLLOUT_TOL = (1e-4, 1e-4)
 ROLLOUT_CHECK_STEPS = 3
+# dense bf16 multi-scale forward, card vs CPU: the CPU's bf16 forward lies
+# its bf16-vs-f32 gap from the f32 result and the card's about as far, so
+# by the triangle inequality the two lie within twice the gap of each
+# other. Measured on the H100: 0.47 (acceleration) and 0.43 (strain) of
+# the gap, so one side's roundings do not all land where the other's do.
+BF16_GAP_FACTOR = 2.0
 # one training step on the card vs on the CPU at full width. A (f32): sums
 # in another order through 5 layers and their backward (and index_select's
 # backward adds with atomics on the card), ReLU gates whose h lies within
@@ -100,12 +130,25 @@ STEP_TOL = {
 }
 TRAIN_STEPS, SAVE_EVERY, LOG_EVERY = 20, 10, 10
 PROFILE_STEPS = 3
+PROFILE_ROLLOUT_STEPS = 10
 FIXED_BATCH_STEPS = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # non-tensor f32; bf16 tensor
 # the gather probes of scripts/gather_kernel_probe.py: tbl [38384, 64] f32,
 # idx [307008] i32
 GATHER_SHAPE = (38384, 64, 307008)
+GATHER_TIMING_ITERS = 200
+# the multi-scale model: configs/taylor2d_multi_scale.yaml (its data_path
+# is the synthetic dataset built here)
+MS_MODEL = dict(
+    num_scales=2, window_size=2, radius_multiplier=2.0, layers=10, hidden_dim=128, dim=2,
+    particle_type_embedding_size=9, input_sequence_length=11, connection_radius=0.6, batch_size=16,
+    noise_std=0.02, lr_init=0.001, lr_decay=0.1, lr_decay_steps=15000, inference_mode="autoregressive",
+    pad_multiple=128, edge_pad_multiple=4096, seed=0,
+)
+# name: (ms_dense, compute_dtype); "auto" picks the dense layout at this scale
+MS_RUNS = {"dense_f32": ("auto", "float32"), "dense_bf16": ("auto", "bfloat16"), "coo_f32": (False, "float32")}
+
 MODEL = dict(  # the model of both configs
     layers=5,
     hidden_dim=64,
@@ -765,20 +808,27 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
     )
 
     if compute_dtype == "float32":
-        # the same rollout's first steps on the CPU through the plain versions
+        # each of the first steps on the CPU through the plain versions, from
+        # the card's own window: a 'one_step' rollout whose ground truth is the
+        # card's prediction. The graph is searched anew every step, so a
+        # free-running comparison would let a 1e-6 drift flip a pair at the
+        # radius and move a particle by far more than rounding; its error is
+        # reported, not held.
         from sgnn_tpu_torch.physics.rollout import rollout
         from sgnn_tpu_torch.physics.simulator import make_norm_stats, simulator_init
 
         state, _ = CheckpointManager(Path(cfg.model_path) / cfg.run_name).restore(model_file)
         cpu_sim = simulator_init(sim_cfg, device="cpu")
         cpu_sim.load_state_dict(state["params"], strict=True)
+        cpu_stats = make_norm_stats(metadata, cfg.noise_std, device="cpu")
         traj = next(iter(loader))
-        t_end = cfg.input_sequence_length + ROLLOUT_CHECK_STEPS
-        ref = rollout(
-            cpu_sim, sim_cfg, make_norm_stats(metadata, cfg.noise_std, device="cpu"),
-            traj["positions"][:, :t_end], traj["particle_type"], traj["strains"][:t_end],
-            traj["node_mask"], device="cpu",
-        )
+        s, t_end = cfg.input_sequence_length, cfg.input_sequence_length + ROLLOUT_CHECK_STEPS
+        card_pred = outs[0]["predicted_rollout"][:ROLLOUT_CHECK_STEPS]
+        card_windows = np.concatenate([traj["positions"][:, :s], card_pred.transpose(1, 0, 2)], axis=1)
+        ref = rollout(cpu_sim, sim_cfg, cpu_stats, card_windows, traj["particle_type"],
+                      traj["strains"][:t_end], traj["node_mask"], inference_mode="one_step", device="cpu")
+        free = rollout(cpu_sim, sim_cfg, cpu_stats, traj["positions"][:, :t_end], traj["particle_type"],
+                       traj["strains"][:t_end], traj["node_mask"], device="cpu")
         atol, rtol = ROLLOUT_TOL
         errs = {}
         for key in ("predicted_rollout", "predicted_strain"):
@@ -786,40 +836,346 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
             b = ref[key].numpy()
             err = np.abs(a - b)
             errs[key] = float(err.max())
+            errs[f"{key}_free_running"] = float(np.abs(a - free[key].numpy()).max())
             if (err > atol + rtol * np.abs(b)).any():
                 raise AssertionError(
                     f"card vs CPU rollout, {key}: max |err| {err.max():.3e} beyond "
                     f"atol {atol} + rtol {rtol}"
                 )
-        result["cpu_check"] = dict(steps=ROLLOUT_CHECK_STEPS, max_abs_err=errs, atol=atol, rtol=rtol)
+        result["cpu_check"] = dict(steps=ROLLOUT_CHECK_STEPS, from_card_windows=True, max_abs_err=errs,
+                                   atol=atol, rtol=rtol)
 
         gpu_sim = simulator_init(sim_cfg)
         gpu_sim.load_state_dict(state["params"], strict=True)
+        stats = make_norm_stats(metadata, cfg.noise_std, device=gpu_sim.device)
+        t_end = cfg.input_sequence_length + PROFILE_ROLLOUT_STEPS
         result["profile"] = profile_rollout(
-            gpu_sim, sim_cfg, make_norm_stats(metadata, cfg.noise_std, device=gpu_sim.device),
-            traj, ms_step,
+            lambda: rollout(gpu_sim, sim_cfg, stats, traj["positions"][:, :t_end], traj["particle_type"],
+                            traj["strains"][:t_end], traj["node_mask"]),
+            ms_step,
         )
     log("rollout " + json.dumps(result))
     return result
 
 
-def profile_rollout(sim, sim_cfg, stats, traj, wall_ms_step, steps=10):
-    """Device time per rollout step from torch.profiler over ``steps``
-    steps of a warm rollout, beside the unprofiled wall time per step."""
+def profile_rollout(run, wall_ms_step, steps=PROFILE_ROLLOUT_STEPS):
+    """Device time per rollout step from torch.profiler over ``run()``, a
+    rollout of ``steps`` steps, once warm, beside the unprofiled wall
+    time per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sgnn_tpu_torch.physics.rollout import rollout
-
-    t_end = sim_cfg.input_sequence_length + steps
-    args = (traj["positions"][:, :t_end], traj["particle_type"], traj["strains"][:t_end],
-            traj["node_mask"])
-    rollout(sim, sim_cfg, stats, *args)  # warm-up
+    run()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rollout(sim, sim_cfg, stats, *args)
+        run()
         torch.cuda.synchronize()
     return dict(wall_ms_per_step=wall_ms_step, **device_profile(prof, steps, wall_ms_step))
+
+
+def gather_bound(tbl, idx):
+    """Least time of ``tbl[idx]`` on the card: the bytes it must move (each
+    table row these indices read, once; the indices; the output) over HBM
+    rate. A gather does no arithmetic."""
+    import torch
+
+    rows_read = int(torch.unique(idx.reshape(-1).long().clamp(0, tbl.shape[0] - 1)).numel())
+    row_bytes = tbl.shape[1] * tbl.element_size()
+    n_bytes = rows_read * row_bytes + idx.numel() * idx.element_size() + idx.numel() * row_bytes
+    ms, by = _bound(n_bytes, 0, "float32")
+    return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, table_rows_read=rows_read)
+
+
+def ms_config(data: Path, **kw):
+    from sgnn_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(data_path=str(data), **{**MS_MODEL, **kw})
+
+
+def phase_row_gather(data: Path, dev):
+    """The three row-gather kernels against their plain version, bit for
+    bit, then timed (plain / kernel / kernel / plain) beside index_select
+    and the bound. Shapes: the probe's (int32 indices), and the sender
+    gathers of the dense multi-scale graph of the first test trajectory
+    (its own int64 indices into a [nodes, hidden] table); ragged sizes
+    with clamped indices are checked, not timed."""
+    import torch
+
+    from sgnn_tpu_torch.data.loader import load_metadata
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.scripts.gather_kernel_probe import probe_inputs
+    from sgnn_tpu_torch.scripts.gather_kernel_probe import time_ms as graph_time_ms
+    from sgnn_tpu_torch.train.train_multi_scale import make_loader, ms_config_from
+
+    cfg = ms_config(data, ms_dense=True)
+    loader = make_loader(cfg, ms_config_from(cfg, load_metadata(data)), "test")
+    graph = loader.graphs[0]
+    g = torch.Generator().manual_seed(11)
+    timed = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        timed[f"probe_{name}"] = probe_inputs(dtype, dev)
+        table = torch.randn(loader.num_nodes, cfg.hidden_dim, generator=g).to(dtype).to(dev)
+        for edge_type, de in (("m2m", graph.m2m[0]), ("m2g", graph.m2g)):
+            timed[f"{edge_type}_senders_{name}"] = (table, torch.as_tensor(de.senders, dtype=torch.int64, device=dev))
+    checks = dict(timed)
+    for name, dtype, width in (("float32", torch.float32, 4), ("bfloat16", torch.bfloat16, 8)):
+        table = torch.randn(97, width, generator=g).to(dtype).to(dev)
+        idx = torch.randint(0, 97, (1001,), generator=g)
+        idx[[0, 500, 1000]] = torch.tensor([97, -3, 97 + 40])  # clamped into [0, 97)
+        for itype in (torch.int32, torch.int64):
+            checks[f"ragged_{name}_{str(itype)[-5:]}"] = (table, idx.to(itype).to(dev))
+
+    worst = 0.0
+    for case, (tbl, idx) in checks.items():
+        want = rg.row_gather_reference(tbl, idx)
+        for variant in rg.VARIANTS:
+            got = getattr(rg, f"row_gather_{variant}")(tbl, idx)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"row_gather_{variant} {case}: differs from the plain version")
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+        log(f"kernel row_gather {case}: tbl {list(tbl.shape)} {str(tbl.dtype)[6:]}, idx {list(idx.shape)} "
+            f"{str(idx.dtype)[6:]}: loop, unroll8, take bit-identical to the plain version")
+
+    results = {v: {} for v in rg.VARIANTS}
+    for case, (tbl, idx) in timed.items():
+        bound = gather_bound(tbl, idx)
+        library_ms = graph_time_ms(lambda: torch.index_select(tbl, 0, idx.reshape(-1)), GATHER_TIMING_ITERS, dev)
+        for variant in rg.VARIANTS:
+            fn = getattr(rg, f"row_gather_{variant}")
+            # plain / kernel / kernel / plain, each GATHER_TIMING_ITERS calls in one CUDA graph
+            runs = [graph_time_ms(lambda f=f: f(tbl, idx), GATHER_TIMING_ITERS, dev)
+                    for f in (rg.row_gather_reference, fn, fn, rg.row_gather_reference)]
+            results[variant][case] = dict(
+                bound, ms=(runs[1] + runs[2]) / 2, plain_ms=(runs[0] + runs[3]) / 2,
+                kernel_ms_runs=runs[1:3], plain_ms_runs=[runs[0], runs[3]], library_ms=library_ms,
+                # the same calls launched one by one from the host (the model's way)
+                host_loop_ms=time_ms(fn, [(tbl, idx)], iters=GATHER_TIMING_ITERS),
+                shape=[list(tbl.shape), list(idx.shape)], dtype=str(tbl.dtype)[6:], index_dtype=str(idx.dtype)[6:],
+            )
+        log(f"time row_gather {case}: " + ", ".join(f"{v} {results[v][case]['ms'] * 1e3:.2f} us" for v in rg.VARIANTS)
+            + f"; plain {results['take'][case]['plain_ms'] * 1e3:.2f} us, index_select {library_ms * 1e3:.2f} us, "
+            f"bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}, {bound['table_rows_read']} table rows read); "
+            "launched from a host loop: " + ", ".join(f"{v} {results[v][case]['host_loop_ms'] * 1e3:.2f} us"
+                                                       for v in rg.VARIANTS))
+    fastest = min(rg.VARIANTS, key=lambda v: sum(results[v][c]["ms"] for c in ("m2m_senders_float32", "m2g_senders_float32")))
+    log(f"row_gather: fastest at the multi-scale f32 sender gathers: {fastest}; the model calls {rg.MODEL_VARIANT}")
+    return dict(results=results, max_abs_err=worst, checked=sorted(checks), fastest_at_ms_shapes=fastest)
+
+
+def reset_gather_launches():
+    from sgnn_tpu_torch.ops import row_gather as rg
+
+    for v in rg.LAUNCHES:
+        rg.LAUNCHES[v] = 0
+
+
+def phase_probe():
+    """The ported gather probe in bf16 (its data type) and f32; its lines
+    are printed, and each kernel must have launched."""
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.scripts import gather_kernel_probe as probe
+
+    out = {}
+    for name in ("bfloat16", "float32"):
+        reset_gather_launches()
+        times = probe.main(["--dtype", name])
+        launches = dict(rg.LAUNCHES)
+        if min(launches.values()) == 0:
+            raise AssertionError(f"probe {name}: a kernel did not launch: {launches}")
+        out[name] = dict(times_ms=times, launches=launches)
+    log("probe " + json.dumps(out))
+    return out
+
+
+def ms_write_inputs(root: Path, data: Path):
+    """A checkpoint of seeded initial weights at full width, written with
+    the port's checkpoint code; returns its file name."""
+    import torch
+
+    from sgnn_tpu_torch.data.loader import load_metadata
+    from sgnn_tpu_torch.physics.multi_scale_simulator import multi_scale_simulator_init
+    from sgnn_tpu_torch.train.checkpoint import CheckpointManager, train_state
+    from sgnn_tpu_torch.train.train_multi_scale import ms_config_from
+
+    cfg = ms_config(data)
+    sim = multi_scale_simulator_init(ms_config_from(cfg, load_metadata(data)),
+                                     generator=torch.Generator().manual_seed(cfg.seed), device="cpu")
+    return CheckpointManager(root / "ms_models" / "smoke_ms").save_best(train_state(sim), 0, float("inf")).name
+
+
+def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: str):
+    """``train_multi_scale.main`` in rollout mode from the config written
+    for run ``name``; launches, ms/step, peak memory, the card-vs-CPU check
+    (f32) and a profile of a warm rollout."""
+    import numpy as np
+    import torch
+
+    from sgnn_tpu_torch.data.loader import load_metadata
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.physics.multi_scale_graph import DenseStaticGraph
+    from sgnn_tpu_torch.physics.multi_scale_simulator import ms_rollout, multi_scale_simulator_init
+    from sgnn_tpu_torch.physics.simulator import make_norm_stats
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+    from sgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    ms_dense, dtype_name = MS_RUNS[name]
+    run_cfg = dict(MS_MODEL, data_path=str(data), model_path=str(root / "ms_models"), run_name="smoke_ms",
+                   output_path=str(root / "ms_rollouts" / name), ms_dense=ms_dense, compute_dtype=dtype_name)
+    yml = root / f"ms_{name}.yaml"
+    yml.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in run_cfg.items()))
+    cfg = ms_config(data, **{k: v for k, v in run_cfg.items() if k != "data_path"}, mode="rollout",
+                    model_file=model_file)
+    metadata = load_metadata(data)
+    sim_cfg = tms.ms_config_from(cfg, metadata)
+    loader = tms.make_loader(cfg, sim_cfg, "test")
+    graph = loader.graphs[0]
+    dense = isinstance(graph, DenseStaticGraph)
+    if dense != name.startswith("dense"):
+        raise AssertionError(f"ms {name}: ms_dense={ms_dense} gave the {'dense' if dense else 'COO'} layout")
+    blocks = 2 + cfg.layers * (len(graph.m2m) if dense else 1)  # G2M, M2G, and M2M per layer (and scale)
+    per_step = 2 * blocks  # proj_i[receivers], proj_j[senders]
+    frames = [p.shape[0] for p, _, _ in loader.trajectories]
+    steps = sum(f - cfg.input_sequence_length for f in frames)
+    expect = {v: (per_step * steps if v == rg.MODEL_VARIANT else 0) for v in rg.VARIANTS}
+    log(f"ms {name}: {len(frames)} test trajectories x {loader.num_nodes} nodes (padded), "
+        f"{'dense' if dense else 'COO'} layout, {blocks} blocks, {steps} rollout steps, {dtype_name}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_gather_launches()
+    summary = tms.main(["--config", str(yml), "--mode", "rollout", "--model_file", model_file])
+    launches = dict(rg.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    if launches != expect:
+        raise AssertionError(f"ms {name}: row_gather launches {launches}, expected {expect}")
+    if not all(math.isfinite(summary[k]) for k in ("total", "position", "strain", "one_step")):
+        raise AssertionError(f"ms {name}: non-finite summary {summary}")
+    outs = []
+    for case in metadata["file_test"]:
+        with open(Path(cfg.output_path) / cfg.run_name / case.replace(".npz", ".pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    for out in outs:
+        for key in ("predicted_rollout", "predicted_strain", "rmse_position_per_step", "rmse_strain_per_step"):
+            if not np.isfinite(out[key]).all():
+                raise AssertionError(f"ms {name} {out['case_name']}: non-finite {key}")
+        if out["predicted_rollout"].shape != out["ground_truth_rollout"].shape:
+            raise AssertionError(f"ms {name} {out['case_name']}: rollout shape mismatch")
+    warm = outs[-1]  # the first trajectory warmed up the card
+    ms_step = warm["run_time"] / warm["predicted_rollout"].shape[0] * 1e3
+    result = dict(
+        run=name, layout="dense" if dense else "coo", compute_dtype=dtype_name, blocks=blocks,
+        launches=launches, expected_launches=expect, gathers_per_step=per_step, steps=steps,
+        nodes=loader.num_nodes, ms_per_step=ms_step, steps_per_s=1e3 / ms_step,
+        first_trajectory_s=outs[0]["run_time"], peak_memory_mb=peak_mb,
+        summary={k: summary[k] for k in ("total", "position", "strain", "one_step", "mean_time", "std_time")},
+        device=kind, nvidia_smi=smi,
+    )
+
+    state, _ = CheckpointManager(Path(cfg.model_path) / cfg.run_name).restore(model_file)
+    traj = next(iter(loader))
+    if dtype_name == "float32":
+        # the same rollout's first steps on the CPU through the plain versions
+        cpu_sim = multi_scale_simulator_init(sim_cfg, device="cpu")
+        cpu_sim.load_state_dict(state["params"], strict=True)
+        t_end = cfg.input_sequence_length + ROLLOUT_CHECK_STEPS
+        ref = ms_rollout(cpu_sim, sim_cfg, make_norm_stats(metadata, cfg.noise_std), traj["positions"][:, :t_end],
+                         traj["particle_type"], traj["strains"][:t_end], traj["graph"], traj["node_mask"],
+                         device="cpu")
+        atol, rtol = ROLLOUT_TOL
+        errs = {}
+        for key in ("predicted_rollout", "predicted_strain"):
+            a, b = outs[0][key][:ROLLOUT_CHECK_STEPS], ref[key].numpy()
+            err = np.abs(a - b)
+            errs[key] = float(err.max())
+            if (err > atol + rtol * np.abs(b)).any():
+                raise AssertionError(f"ms {name}: card vs CPU rollout, {key}: max |err| {err.max():.3e} "
+                                     f"beyond atol {atol} + rtol {rtol}")
+        result["cpu_check"] = dict(steps=ROLLOUT_CHECK_STEPS, max_abs_err=errs, atol=atol, rtol=rtol)
+
+    gpu_sim = multi_scale_simulator_init(sim_cfg)
+    gpu_sim.load_state_dict(state["params"], strict=True)
+    stats = make_norm_stats(metadata, cfg.noise_std, device=gpu_sim.device)
+    if dtype_name == "bfloat16":
+        result["cpu_check"] = ms_bf16_forward_check(name, gpu_sim, sim_cfg, state, metadata, cfg.noise_std, traj)
+    t_end = cfg.input_sequence_length + PROFILE_ROLLOUT_STEPS
+    result["profile"] = profile_rollout(
+        lambda: ms_rollout(gpu_sim, sim_cfg, stats, traj["positions"][:, :t_end], traj["particle_type"],
+                           traj["strains"][:t_end], traj["graph"], traj["node_mask"]),
+        ms_step,
+    )
+    log(f"ms rollout {name} " + json.dumps(result))
+    return result
+
+
+def ms_bf16_forward_check(name, gpu_sim, sim_cfg, state, metadata, noise_std, traj):
+    """One bf16 forward from the first window on the card against the same
+    forward on the CPU through the plain versions, to ``BF16_GAP_FACTOR``
+    times the CPU's own bf16-vs-f32 gap."""
+    import dataclasses
+
+    import torch
+
+    from sgnn_tpu_torch.physics.multi_scale_simulator import _forward, graph_to, multi_scale_simulator_init
+    from sgnn_tpu_torch.physics.simulator import make_norm_stats
+
+    window = torch.as_tensor(traj["positions"][:, : sim_cfg.input_sequence_length], dtype=torch.float32)
+    types = torch.as_tensor(traj["particle_type"])
+
+    def forward(sim, cfg):
+        dev = sim.device
+        with torch.no_grad():
+            acc, strain = _forward(sim, cfg, make_norm_stats(metadata, noise_std, device=dev), window.to(dev),
+                                   types.to(dev), graph_to(traj["graph"], dev))
+        return {"acceleration": acc.cpu(), "strain": strain.cpu()}
+
+    def on_cpu(cfg):
+        sim = multi_scale_simulator_init(cfg, device="cpu")
+        sim.load_state_dict(state["params"], strict=True)
+        return forward(sim, cfg)
+
+    f32_cfg = dataclasses.replace(sim_cfg, compute_dtype="float32")
+    card, cpu, cpu_f32 = forward(gpu_sim, sim_cfg), on_cpu(sim_cfg), on_cpu(f32_cfg)
+    errs, gaps, scale = {}, {}, {}
+    for key in ("acceleration", "strain"):
+        errs[key] = float((card[key] - cpu[key]).abs().max())
+        gaps[key] = float((cpu[key] - cpu_f32[key]).abs().max())
+        scale[key] = float(cpu_f32[key].abs().max())
+        if not errs[key] <= BF16_GAP_FACTOR * gaps[key]:
+            raise AssertionError(f"ms {name}: card vs CPU bf16 forward, {key}: max |err| {errs[key]:.3e} beyond "
+                                 f"{BF16_GAP_FACTOR} x the CPU's bf16-vs-f32 gap {gaps[key]:.3e}")
+    return dict(steps=1, forward=True, max_abs_err=errs, cpu_bf16_vs_f32_gap=gaps, gap_factor=BF16_GAP_FACTOR,
+                output_max_abs=scale)
+
+
+def gather_summary(gather, probe, ms_runs):
+    """The kernel-summary entries of the three row-gather kernels: times
+    at the dense m2m sender gather (f32), the main path's, and at every
+    timed shape; launches by path."""
+    from sgnn_tpu_torch.ops import row_gather as rg
+
+    main_case = "m2m_senders_float32"
+    entries = []
+    for variant, line in (("loop", 56), ("unroll8", 64), ("take", 74)):
+        by_path = {f"probe_{d}": probe[d]["launches"][variant] for d in probe}
+        by_path.update({f"ms_{n}": r["launches"][variant] for n, r in ms_runs.items()})
+        res = gather["results"][variant]
+        main = res[main_case]
+        entries.append(dict(
+            name=f"row_gather_{variant}", route="cuda", source="sgnn_tpu_torch/csrc/row_gather.cu",
+            replaces=f"scripts/gather_kernel_probe.py:{line}",
+            launches=by_path["ms_dense_f32"] if variant == rg.MODEL_VARIANT else by_path["probe_bfloat16"],
+            launches_by_path=by_path, model_variant=variant == rg.MODEL_VARIANT, dtype=main["dtype"],
+            shape=main["shape"], max_abs_err=gather["max_abs_err"], tol="bit-identical (torch.equal)",
+            checked=gather["checked"], ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"], bytes=main["bytes"],
+            kernel_ms_runs=main["kernel_ms_runs"], plain_ms_runs=main["plain_ms_runs"],
+            host_loop_ms=main["host_loop_ms"],
+            at_shapes={c: {k: r[k] for k in ("shape", "dtype", "ms", "plain_ms", "bound_ms", "library_ms",
+                                             "host_loop_ms")}
+                       for c, r in res.items()},
+        ))
+    return entries
 
 
 def main() -> int:
@@ -886,6 +1242,22 @@ def main() -> int:
         for name in CONFIGS:
             out, cfg, ckpt = trained[name]
             rollouts[cfg.compute_dtype] = run_rollout(root, data, cfg, ckpt, smi, kind)
+        torch.cuda.empty_cache()
+
+        # 7. row gather against its plain version, then timed
+        gather = phase_row_gather(data, card)
+        torch.cuda.empty_cache()
+
+        # 8. the ported gather probe
+        probe = phase_probe()
+        torch.cuda.empty_cache()
+
+        # 9. multi-scale rollout, through train_multi_scale.main
+        ms_ckpt = ms_write_inputs(root, data)
+        ms_runs = {}
+        for name in MS_RUNS:
+            ms_runs[name] = run_ms(root, data, name, ms_ckpt, smi, kind)
+            torch.cuda.empty_cache()
 
     by_dtype = {trained[n][0]["compute_dtype"]: trained[n][0] for n in CONFIGS}
     kernels = []
@@ -911,6 +1283,7 @@ def main() -> int:
                 entry["at_rollout_shape"] = {k: res["at_rollout_shape"][k] for k in
                                              ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
             kernels.append(entry)
+    kernels.extend(gather_summary(gather, probe, ms_runs))
     log("library " + json.dumps({"index_select": kernel_results["index_select"],
                                  "fixed_batch_losses": fixed, "card_vs_cpu_step": step_checks,
                                  "sym_gather_backward_check": sym_check,

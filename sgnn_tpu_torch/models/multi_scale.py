@@ -1,0 +1,227 @@
+"""Multi-scale GNN: grid encoder + G2M -> M x M2M -> M2G interaction blocks.
+
+Port of ``sgnn_tpu/models/multi_scale.py`` (serving): ``MSGNNConfig``,
+the parameter module ``MultiScaleGNN``, the COO forward
+(``_interact``, ``multi_scale_gnn_apply``) and the dense-slot forward
+(``_interact_dense``, ``_interact_dense_scales``,
+``multi_scale_gnn_apply_dense``).
+
+Node state is one full-grid ``[N, D]`` tensor at every stage; the mesh
+scales exist only as edge lists over global grid indices. G2M, M2M and
+M2G blocks are the same interaction network over different static edge
+lists: ``msg = edge_fn([x_receiver, x_sender, e])``, sum at receivers,
+``upd = node_fn([agg, x])``, residuals on nodes and edges; the node
+update runs on ALL N nodes. The first Linear of ``edge_fn`` is applied in
+split form, so the receiver and sender projections are ``[N, H]`` node
+products whose rows are gathered per edge: those latent-row gathers go
+through ``ops/row_gather.row_gather`` (the kernel).
+
+``compute_dtype`` (bf16) lowers the edge-sized tensors; aggregation,
+LayerNorm moments, node updates and the prediction head stay f32.
+Forward only: the gathers' backwards come with multi-scale training
+(ROADMAP.md, Queue A item 5b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from sgnn_tpu_torch.models.encode_process_decode import (
+    InteractionNetwork,
+    mlp_ln_apply,
+    mlp_tail,
+    split_first_layer,
+)
+from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
+from sgnn_tpu_torch.ops.row_gather import row_gather
+from sgnn_tpu_torch.ops.segment import coo_segment_sum, segment_sum
+
+
+@dataclasses.dataclass(frozen=True)
+class MSGNNConfig:
+    """Hyperparameters (the JAX ``MSGNNConfig``; two hidden layers per MLP
+    is the reference trainer's default)."""
+
+    node_in: int
+    edge_in: int
+    node_out: int
+    latent_dim: int
+    num_message_passing_steps: int
+    num_mlp_layers: int = 2
+
+    @property
+    def hidden_dims(self):
+        return [self.latent_dim] * self.num_mlp_layers
+
+
+class MultiScaleGNN(nn.Module):
+    """Parameters in the reference ``MultiScaleGNN`` key layout:
+    ``grid_node_encoder``, ``{g2m,m2m,m2g}_edge_encoder`` (each
+    ``Sequential(MLP, LayerNorm)``), ``g2m_block``, ``m2m_blocks.{m}``,
+    ``m2g_block`` (each with ``edge_fn``/``node_fn``) and
+    ``prediction_head`` (MLP). The forwards are the functions below."""
+
+    def __init__(self, cfg: MSGNNConfig, *, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        d, hidden = cfg.latent_dim, cfg.hidden_dims
+        self.grid_node_encoder = mlp_ln(cfg.node_in, hidden, d, **kw)
+        self.g2m_edge_encoder = mlp_ln(cfg.edge_in, hidden, d, **kw)
+        self.m2m_edge_encoder = mlp_ln(cfg.edge_in, hidden, d, **kw)
+        self.m2g_edge_encoder = mlp_ln(cfg.edge_in, hidden, d, **kw)
+        self.g2m_block = InteractionNetwork(cfg, **kw)
+        self.m2m_blocks = nn.ModuleList(InteractionNetwork(cfg, **kw) for _ in range(cfg.num_message_passing_steps))
+        self.m2g_block = InteractionNetwork(cfg, **kw)
+        self.prediction_head = MLP(d, hidden, cfg.node_out, **kw)
+
+
+def _mlp_tail_in(mlp: MLP, h: torch.Tensor) -> torch.Tensor:
+    """``mlp_tail`` that keeps the activations in h's dtype (weights cast
+    to it); identical to ``mlp_tail`` in f32."""
+    dt = h.dtype
+    linears = mlp.linears
+    if len(linears) == 1:
+        return h
+    x = torch.relu(h)
+    for lin in linears[1:-1]:
+        x = torch.relu(x @ lin.weight.t().to(dt) + lin.bias.to(dt))
+    last = linears[-1]
+    return x @ last.weight.t().to(dt) + last.bias.to(dt)
+
+
+def _edge_mlp_in(block: InteractionNetwork, d: int, dt: torch.dtype):
+    """The edge MLP's first Linear split over [x_i, x_j, e]."""
+    (w_i, w_j, w_e), b_e = split_first_layer(block.edge_fn[0], (d, d, d))
+    return w_i, w_j, w_e.to(dt), b_e.to(dt)
+
+
+def _edge_msg(block: InteractionNetwork, h: torch.Tensor, maskf: torch.Tensor) -> torch.Tensor:
+    ln = block.edge_fn[1]
+    return layer_norm(_mlp_tail_in(block.edge_fn[0], h), ln.weight, ln.bias) * maskf
+
+
+def _node_update(block: InteractionNetwork, x: torch.Tensor, agg_hn: torch.Tensor) -> torch.Tensor:
+    """x + LN(node_fn(cat[agg, x])) given ``agg_hn``, the aggregate
+    already through its block of the first Linear (f32)."""
+    d = x.shape[-1]
+    (_, w_x), b_n = split_first_layer(block.node_fn[0], (d, d))
+    ln = block.node_fn[1]
+    upd = layer_norm(mlp_tail(block.node_fn[0], agg_hn + x @ w_x + b_n), ln.weight, ln.bias)
+    return x + upd
+
+
+def _agg_weight(block: InteractionNetwork, d: int) -> torch.Tensor:
+    (w_agg, _), _ = split_first_layer(block.node_fn[0], (d, d))
+    return w_agg
+
+
+def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges, compute_dtype=None):
+    """One interaction step over padded COO edges (``PaddedEdges`` of
+    tensors): padded slots (mask False) add nothing to the aggregation and
+    their latents stay zero. Returns (new x [N, D], new e [E, D])."""
+    d, n = x.shape[-1], x.shape[0]
+    dt = e.dtype if compute_dtype is None else compute_dtype
+    maskf = edges.mask[:, None].to(dt)
+    w_i, w_j, w_e, b_e = _edge_mlp_in(block, d, dt)
+    proj_i = x @ w_i  # [N, H]
+    proj_j = x @ w_j
+    if compute_dtype is not None:
+        proj_j = proj_j.to(dt)
+    h = row_gather(proj_i, edges.receivers).to(dt) + row_gather(proj_j, edges.senders) + e @ w_e + b_e
+    msg = _edge_msg(block, h, maskf)
+    agg = coo_segment_sum(msg.float(), edges.receivers, n)  # f32 accumulation
+    return _node_update(block, x, agg @ _agg_weight(block, d)), (e + msg) * maskf
+
+
+def _encode_edges(gnn: MultiScaleGNN, name: str, feats: torch.Tensor, mask: torch.Tensor, compute_dtype):
+    out = mlp_ln_apply(getattr(gnn, name), feats) * mask[..., None].to(feats.dtype)
+    return out if compute_dtype is None else out.to(compute_dtype)
+
+
+def multi_scale_gnn_apply(
+    gnn: MultiScaleGNN,
+    node_features: torch.Tensor,  # [N, node_in] full-grid nodes
+    edge_features: Dict[str, torch.Tensor],  # {'g2m','m2m','m2g'}: [E_pad, edge_in]
+    graph,  # StaticGraph of tensors
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """COO forward; returns [N, node_out]."""
+    x = mlp_ln_apply(gnn.grid_node_encoder, node_features)
+    e_g2m = _encode_edges(gnn, "g2m_edge_encoder", edge_features["g2m"], graph.g2m.mask, compute_dtype)
+    e_m2m = _encode_edges(gnn, "m2m_edge_encoder", edge_features["m2m"], graph.m2m.mask, compute_dtype)
+    e_m2g = _encode_edges(gnn, "m2g_edge_encoder", edge_features["m2g"], graph.m2g.mask, compute_dtype)
+    x, _ = _interact(gnn.g2m_block, x, e_g2m, graph.g2m, compute_dtype)
+    for block in gnn.m2m_blocks:
+        x, e_m2m = _interact(block, x, e_m2m, graph.m2m, compute_dtype)
+    x, _ = _interact(gnn.m2g_block, x, e_m2g, graph.m2g, compute_dtype)
+    return gnn.prediction_head(x)
+
+
+def _interact_dense_scales(
+    block: InteractionNetwork,
+    x: torch.Tensor,
+    es: Sequence[torch.Tensor],  # per edge set: [R_s, K_s, D]
+    des: Sequence,  # DenseEdges of tensors, disjoint edge sets over the same nodes
+    compute_dtype=None,
+):
+    """One interaction step over a union of dense edge sets (one per m2m
+    scale; a single set is ``_interact_dense``). The edge update runs per
+    set on ``[R, K, .]`` slots; each set's masked slot sum goes through
+    the node MLP's aggregate block (f32 products of the edge dtype's
+    values, summed in f32) and ONE segment sum writes it back to the full
+    grid; the node update runs once on the sum over the sets.
+    Returns (new x [N, D], new edge latents per set)."""
+    d, n = x.shape[-1], x.shape[0]
+    dt = es[0].dtype if compute_dtype is None else compute_dtype
+    w_i, w_j, w_e, b_e = _edge_mlp_in(block, d, dt)
+    proj_i_full = x @ w_i  # [N, H]
+    proj_j = x @ w_j
+    if compute_dtype is not None:
+        proj_j = proj_j.to(dt)
+    w_agg = _agg_weight(block, d).to(dt).float()
+    agg_hn = torch.zeros((n, d), dtype=torch.float32, device=x.device)
+    new_es = []
+    for e, de in zip(es, des):
+        maskf = de.mask[..., None].to(dt)
+        proj_i = row_gather(proj_i_full, de.recv)  # [R, H]
+        xj = row_gather(proj_j, de.senders)  # [R, K, H]
+        h = proj_i.to(dt)[:, None, :] + xj + e @ w_e + b_e
+        msg = _edge_msg(block, h, maskf)
+        new_es.append((e + msg) * maskf)
+        agg_rows = msg.float().sum(dim=1) @ w_agg  # [R, D]
+        agg_hn = agg_hn + segment_sum(agg_rows, de.recv, n)
+    return _node_update(block, x, agg_hn), new_es
+
+
+def _interact_dense(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, de, compute_dtype=None):
+    """One interaction step over one DenseEdges set."""
+    x, (new_e,) = _interact_dense_scales(block, x, [e], [de], compute_dtype)
+    return x, new_e
+
+
+def multi_scale_gnn_apply_dense(
+    gnn: MultiScaleGNN,
+    node_features: torch.Tensor,  # [N, node_in]
+    edge_features: Dict[str, object],  # g2m/m2g: [R, K, edge_in]; m2m: one per scale
+    graph,  # DenseStaticGraph of tensors
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Dense-slot forward; the parameters and semantics of
+    ``multi_scale_gnn_apply``. Returns [N, node_out]."""
+    x = mlp_ln_apply(gnn.grid_node_encoder, node_features)
+    e_g2m = _encode_edges(gnn, "g2m_edge_encoder", edge_features["g2m"], graph.g2m.mask, compute_dtype)
+    # one shared m2m encoder applied to each scale's features
+    e_m2m = [
+        _encode_edges(gnn, "m2m_edge_encoder", f, de.mask, compute_dtype)
+        for f, de in zip(edge_features["m2m"], graph.m2m)
+    ]
+    e_m2g = _encode_edges(gnn, "m2g_edge_encoder", edge_features["m2g"], graph.m2g.mask, compute_dtype)
+    x, _ = _interact_dense(gnn.g2m_block, x, e_g2m, graph.g2m, compute_dtype)
+    for block in gnn.m2m_blocks:
+        x, e_m2m = _interact_dense_scales(block, x, e_m2m, graph.m2m, compute_dtype)
+    x, _ = _interact_dense(gnn.m2g_block, x, e_m2g, graph.m2g, compute_dtype)
+    return gnn.prediction_head(x)

@@ -1,1 +1,2 @@
-"""Radius search and the fused edge block (port of ``sgnn_tpu/ops``)."""
+"""Radius search, the fused edge block, the row gather and segment sums
+(port of ``sgnn_tpu/ops`` and of the gather probe's kernels)."""

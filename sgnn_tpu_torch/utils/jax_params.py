@@ -1,8 +1,9 @@
 """Weights carried across: JAX simulator params <-> the port's state_dict.
 
-The port's own copy of the mapping in
-``sgnn_tpu/utils/torch_import.export_single_scale`` / ``import_single_scale``
-(the reference ``LearnedSimulator`` layout). JAX params are nested dicts
+The port's own copy of the mappings in ``sgnn_tpu/utils/torch_import.py``:
+``export_single_scale`` / ``import_single_scale`` (the reference
+``LearnedSimulator`` layout) and ``export_multi_scale`` /
+``import_multi_scale`` (the reference ``MultiScaleSimulator`` layout). JAX params are nested dicts
 of arrays with Linear weights stored ``[in, out]``; torch stores
 ``[out, in]``. LayerNorm ``scale``/``bias`` become ``weight``/``bias``.
 Imports nothing from JAX: arrays arrive and leave as numpy.
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 EPD = "_encode_process_decode"
+MSG = "_multi_scale_gnn"
+MS_ENCODERS = ("grid_node_encoder", "g2m_edge_encoder", "m2m_edge_encoder", "m2g_edge_encoder")
 EMBEDDING = "_particle_type_embedding.weight"
 
 
@@ -105,6 +108,46 @@ def state_dict_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
             "decoder": _mlp_from(f"{EPD}._decoder.node_fn", sd),
         }
     }
+    if EMBEDDING in sd:
+        params["type_embedding"] = {"table": _np(sd[EMBEDDING])}
+    return params
+
+
+def ms_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX multi-scale simulator params (``{'gnn': ..., 'type_embedding'?:
+    ...}``) -> a state_dict that ``MultiScaleSimulator.load_state_dict(
+    strict=True)`` accepts."""
+    gnn = params["gnn"]
+    out: Dict[str, torch.Tensor] = {}
+    for enc in MS_ENCODERS:
+        _mlp_ln_to(f"{MSG}.{enc}", gnn[enc], out)
+    blocks = [("g2m_block", gnn["g2m_block"])]
+    blocks += [(f"m2m_blocks.{m}", b) for m, b in enumerate(gnn["m2m_blocks"])]
+    blocks.append(("m2g_block", gnn["m2g_block"]))
+    for name, block in blocks:
+        _mlp_ln_to(f"{MSG}.{name}.edge_fn", block["edge"], out)
+        _mlp_ln_to(f"{MSG}.{name}.node_fn", block["node"], out)
+    _mlp_to(f"{MSG}.prediction_head", gnn["prediction_head"], out)
+    if "type_embedding" in params:
+        out[EMBEDDING] = _t(params["type_embedding"]["table"])
+    return out
+
+
+def ms_state_dict_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of ``ms_state_dict_from_jax``: nested numpy params."""
+    steps = sorted(
+        {int(m.group(1)) for key in sd for m in [re.match(rf"{MSG}\.m2m_blocks\.(\d+)\.", key)] if m}
+    )
+
+    def block(prefix):
+        return {"edge": _mlp_ln_from(f"{prefix}.edge_fn", sd), "node": _mlp_ln_from(f"{prefix}.node_fn", sd)}
+
+    gnn = {enc: _mlp_ln_from(f"{MSG}.{enc}", sd) for enc in MS_ENCODERS}
+    gnn["g2m_block"] = block(f"{MSG}.g2m_block")
+    gnn["m2m_blocks"] = [block(f"{MSG}.m2m_blocks.{m}") for m in steps]
+    gnn["m2g_block"] = block(f"{MSG}.m2g_block")
+    gnn["prediction_head"] = _mlp_from(f"{MSG}.prediction_head", sd)
+    params: dict = {"gnn": gnn}
     if EMBEDDING in sd:
         params["type_embedding"] = {"table": _np(sd[EMBEDDING])}
     return params

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from sgnn_tpu_torch.ops import edge_block as eb
+from sgnn_tpu_torch.ops import row_gather as rg
 
 pytestmark = pytest.mark.cuda
 
@@ -146,3 +147,37 @@ def test_kernel_refuses_degree_grad_and_wide_tiles(cuda):
     g_new, g_agg = _cotangents(4, 2, 96, torch.float32, cuda)
     with pytest.raises(ValueError, match="backward kernel"):
         eb.edge_block_bwd(*bwd_wide, g_new, g_agg, 2)
+
+
+GATHERS = {"loop": rg.row_gather_loop, "unroll8": rg.row_gather_unroll8, "take": rg.row_gather_take}
+
+
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,w,idx_shape", [
+    (4864, 128, (1216, 24)),  # dense m2m senders of the multi-scale model
+    (4864, 128, (4608, 8)),  # dense m2g senders
+    (38384, 64, (307008,)),  # the gather probe
+    (97, 4, (1001,)),  # ragged: E not a multiple of 8 or 32; 16-byte rows (W 4 f32, 8 bf16)
+])
+@pytest.mark.parametrize("variant", list(GATHERS))
+def test_row_gather_kernels_equal_the_plain_version(cuda, variant, rows, w, idx_shape, dtype, itype):
+    if w * torch.tensor([], dtype=dtype).element_size() % 16:
+        w *= 2  # the narrowest row the kernel takes: 16 bytes
+    g = torch.Generator().manual_seed(rows + w)
+    tbl = torch.randn(rows, w, generator=g).to(dtype).to(cuda)
+    idx = torch.randint(0, rows, idx_shape, generator=g).to(itype)
+    idx.view(-1)[[0, -1]] = torch.tensor([rows + 3, -2]).to(itype)  # clamped into [0, rows)
+    idx = idx.to(cuda)
+    before = rg.LAUNCHES[variant]
+    got = GATHERS[variant](tbl, idx)
+    assert rg.LAUNCHES[variant] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (*idx_shape, w) and got.dtype == dtype
+    assert torch.equal(got, rg.row_gather_reference(tbl, idx))
+
+
+def test_row_gather_refuses_grad_on_the_card(cuda):
+    tbl = torch.randn(8, 16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="Queue A item 5b"):
+        rg.row_gather(tbl, torch.zeros(4, dtype=torch.int32, device=cuda))

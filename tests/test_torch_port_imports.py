@@ -11,6 +11,7 @@ import torch
 from sgnn_tpu_torch.kernels import build
 from sgnn_tpu_torch.physics import rollout as troll
 from sgnn_tpu_torch.physics import simulator as tsim
+from sgnn_tpu_torch.scripts import gather_kernel_probe as tprobe
 from sgnn_tpu_torch.train import train as ttrain
 from sgnn_tpu_torch.train.config import TrainConfig
 from sgnn_tpu_torch.utils.device import resolve_device
@@ -68,6 +69,17 @@ def test_entry_points_need_cuda_without_a_device(no_cuda):
         ttrain.main(["--config", str(REPO / "configs" / "taylor2d_single_scale.yaml"), "--mode", "rollout"])
 
 
+def test_probe_needs_cuda_without_a_device(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tprobe.main([])
+
+
+def test_the_walk_reaches_every_new_module():
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert {"sgnn_tpu_torch/scripts/gather_kernel_probe.py", "sgnn_tpu_torch/ops/row_gather.py",
+            "sgnn_tpu_torch/models/multi_scale.py", "sgnn_tpu_torch/train/train_multi_scale.py"} <= names
+
+
 def test_resolve_device_passes_explicit_choices():
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cpu")) == torch.device("cpu")
@@ -83,7 +95,7 @@ def test_rollout_refuses_a_simulator_on_another_device():
 
 
 def test_kernel_sources_and_build_paths():
-    assert {"edge_block_fwd", "edge_block_bwd"} <= set(build.sources())
+    assert {"edge_block_fwd", "edge_block_bwd", "row_gather"} <= set(build.sources())
     lib = build.library_path("edge_block_fwd")
     assert lib.parent == REPO / "build" / "kernels"  # ignored by .gitignore's build/
     assert lib.name.startswith("libedge_block_fwd-") and lib.suffix == ".so"
