@@ -451,7 +451,8 @@ def phase_kernels(train_rows):
                  "weight_grads": f"{SUM_RTOL[dtype_name]} * sum|terms| + 1e-6"},
         )
         log(f"time edge_block_bwd {dtype_name} R,K,D={r},{k},{d}: kernel {bwd['ms'] * 1e3:.2f} us, "
-            f"plain {bwd['plain_ms'] * 1e3:.2f} us, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']})")
+            f"plain {bwd['plain_ms'] * 1e3:.2f} us, bound {bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']}, "
+            f"{bwd['bound_ms'] / bwd['ms']:.3f} of the kernel's time)")
         torch.cuda.empty_cache()
 
     # the library call of the gather probes (rows 3-5 of PERF.md's table)
@@ -1279,6 +1280,8 @@ def main() -> int:
                 bound_by=res["bound_by"], library_ms=None, bytes=res["bytes"], flops=res["flops"],
                 kernel_ms_runs=res["kernel_ms_runs"], plain_ms_runs=res["plain_ms_runs"],
             )
+            if kname == "edge_block_bwd":
+                entry["bound_share"] = res["bound_ms"] / res["ms"]
             if "at_rollout_shape" in res:
                 entry["at_rollout_shape"] = {k: res["at_rollout_shape"][k] for k in
                                              ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}

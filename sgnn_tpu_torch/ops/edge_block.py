@@ -34,7 +34,8 @@ LN_EPS = 1e-5
 KERNEL = "edge_block_fwd"
 BWD_KERNEL = "edge_block_bwd"
 MAX_WIDTH = 128  # D and H the forward kernel's register tiling covers
-MAX_BWD_WIDTH = 64  # D and H the backward kernel's register tiling covers
+MAX_BWD_WIDTH = 64  # D and H the backward kernel's tiles cover
+MAX_BWD_K = 128  # slots per receiver: one receiver's rows must fit a 128-row tile
 
 # Kernel launches since the last reset (plain counters: callers set them
 # to 0 and read them to show which path ran through the kernels).
@@ -206,6 +207,8 @@ def _check_bwd(args, g_new, g_agg, k):
     e = args[0]
     if max(d, h) > MAX_BWD_WIDTH:
         raise ValueError(f"the backward kernel covers D, H <= {MAX_BWD_WIDTH}; got D={d}, H={h}")
+    if k > MAX_BWD_K:
+        raise ValueError(f"the backward kernel covers K <= {MAX_BWD_K} slots per receiver; got K={k}")
     for name, g, shape in (("g_new", g_new, e.shape), ("g_agg", g_agg, (r, d))):
         if g.dtype != e.dtype or tuple(g.shape) != tuple(shape) or g.device != e.device:
             raise ValueError(f"{name} must be {e.dtype} {tuple(shape)} on {e.device}, got "
@@ -236,7 +239,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     grid = lib.sgnn_edge_block_bwd_grid
-    grid.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    grid.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     grid.restype = ctypes.c_int
     lib.sgnn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sgnn_cuda_error_string.restype = ctypes.c_char_p
@@ -272,16 +275,25 @@ def edge_block_fwd(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, k: int):
 def edge_block_bwd(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, g_new, g_agg, k: int):
     """The backward on its own: the nine gradients of
     ``fused_edge_block_bwd_reference``, from the CUDA kernel for CUDA
-    tensors. The weight gradients come from per-block partial sums
-    reduced in a fixed order, so two launches on the same inputs give
-    the same bits."""
+    tensors (tensor-core tiles of whole receivers, K <= ``MAX_BWD_K``).
+    The weight gradients come from per-block partial sums reduced in a
+    fixed order, so two launches on the same inputs give the same bits."""
     global BWD_LAUNCHES
     args = (e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb)
     if _device_of(e) == "cpu":
         return fused_edge_block_bwd_reference(*args, g_new, g_agg, k)
-    r, d, h = _check_bwd(args, g_new, g_agg, k)
-    lib = build.load(BWD_KERNEL)
+    _check_bwd(args, g_new, g_agg, k)
+    grads = _launch_bwd(build.load(BWD_KERNEL), args, g_new, g_agg, k)
+    BWD_LAUNCHES += 1
+    return grads
+
+
+def _launch_bwd(lib: ctypes.CDLL, args, g_new, g_agg, k: int):
+    """Launch the backward of the library ``lib`` (``csrc/edge_block_bwd.cu``
+    or a build of it) on checked CUDA tensors."""
     _bind_bwd(lib)
+    e, xj, proj_i = args[:3]
+    r, d, h = proj_i.shape[0], e.shape[1], proj_i.shape[1]
     dev = e.device
     g_e = torch.empty_like(e)
     g_xj = torch.empty_like(xj)
@@ -291,7 +303,7 @@ def edge_block_bwd(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, g_new, g_ag
     wgrads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         grid = ctypes.c_int(0)
-        err = lib.sgnn_edge_block_bwd_grid(r, d, h, _DTYPE_CODE[e.dtype], ctypes.byref(grid))
+        err = lib.sgnn_edge_block_bwd_grid(r, k, d, h, _DTYPE_CODE[e.dtype], ctypes.byref(grid))
         if err != 0:
             raise _error(lib, err, BWD_KERNEL)
         partials = torch.empty((max(grid.value, 1), wgrads.numel()), dtype=torch.float32, device=dev)
@@ -300,7 +312,6 @@ def edge_block_bwd(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, g_new, g_ag
         err = lib.sgnn_edge_block_bwd(*ptrs, r, k, d, h, _DTYPE_CODE[e.dtype], grid.value, stream)
     if err != 0:
         raise _error(lib, err, BWD_KERNEL)
-    BWD_LAUNCHES += 1
     g_we, g_be, g_w2, g_b2, g_lns, g_lnb = torch.split(wgrads, sizes)
     return g_e, g_xj, g_proj_i, g_we.view(d, h), g_be, g_w2.view(h, d), g_b2, g_lns, g_lnb
 

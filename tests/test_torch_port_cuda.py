@@ -102,7 +102,15 @@ def test_kernel_matches_plain(cuda, r, k, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("r,k,d", [(4864, 8, 64), (4797, 8, 64), (64, 20, 64), (512, 4, 16), (3, 5, 24)])
+@pytest.mark.parametrize("r,k,d", [
+    (4864, 8, 64), (4797, 8, 64), (64, 20, 64), (512, 4, 16), (3, 5, 24),
+    # shapes that cut the kernel's 128-row tiles of whole receivers raggedly
+    (301, 7, 64),  # K divides no tile: 18 receivers = 126 rows per tile
+    (9, 7, 64),  # R*K below one tile
+    (200, 8, 40),  # D = H = 40, not a multiple of 16
+    (50, 7, 21),  # rows of 84 / 42 bytes: loaded and stored element by element
+    (5, 128, 64),  # the largest K: one receiver per tile
+])
 def test_bwd_kernel_matches_plain_and_repeats_bits(cuda, r, k, d, dtype):
     args = _away_from_relu_ties(_inputs(r, k, d, dtype, cuda), k)
     g_new, g_agg = _cotangents(r, k, d, dtype, cuda)
@@ -147,6 +155,10 @@ def test_kernel_refuses_degree_grad_and_wide_tiles(cuda):
     g_new, g_agg = _cotangents(4, 2, 96, torch.float32, cuda)
     with pytest.raises(ValueError, match="backward kernel"):
         eb.edge_block_bwd(*bwd_wide, g_new, g_agg, 2)
+    many = _inputs(2, eb.MAX_BWD_K + 1, 16, torch.float32, cuda)
+    g_new, g_agg = _cotangents(2, eb.MAX_BWD_K + 1, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="K <= 128"):
+        eb.edge_block_bwd(*many, g_new, g_agg, eb.MAX_BWD_K + 1)
 
 
 GATHERS = {"loop": rg.row_gather_loop, "unroll8": rg.row_gather_unroll8, "take": rg.row_gather_take}

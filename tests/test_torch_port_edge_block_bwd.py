@@ -1,6 +1,8 @@
 """Port edge-block backward (plain version and autograd Function) against
 the JAX Pallas kernel's VJP in interpret mode, on CPU."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -10,6 +12,7 @@ import jax.numpy as jnp
 
 from sgnn_tpu.experimental import edge_block as jeb
 from sgnn_tpu_torch.ops import edge_block as teb
+from sgnn_tpu_torch.scripts import edge_block_bwd_ablation as ablation
 
 torch.set_num_threads(1)
 
@@ -146,3 +149,159 @@ def test_bwd_launch_checks(rng, bad):
         tg[0] = tg[0].double()
     with pytest.raises(ValueError):
         teb._check_bwd(targs, *tg, 4)
+
+
+def test_bwd_check_refuses_more_slots_than_a_tile(rng):
+    k = teb.MAX_BWD_K + 1
+    _, targs, _, tg = both(rng, 2, k, 16)
+    with pytest.raises(ValueError, match=f"K <= {teb.MAX_BWD_K}"):
+        teb._check_bwd(targs, *tg, k)
+
+
+# The CUDA backward computes its products on tensor cores: every product
+# with an f32 operand as 3xTF32 (x = hi + lo, lo*hi + hi*lo + hi*hi with
+# f32 sums), 2 passes where one operand is exactly bf16, and bf16's two
+# recompute products natively in bf16 with an f32 sum. The kernel splits by
+# truncation (hi = x's top 19 bits, lo = x - hi, whose low 13 bits the tensor
+# cores ignore); the emulation holds that and round-to-nearest-even alike. The emulation below
+# repeats that arithmetic on the CPU and holds it to the card tests' limits
+# (tests/test_torch_port_cuda.py, chip_smoke.py): rows BWD_TOL, weight
+# gradients SUM_RTOL * sum|terms| + 1e-6. Single-pass TF32 must fail the f32
+# row limit on the same inputs, which is why the kernel takes three passes.
+CARD_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-4, 2.0**-7)}  # (atol, rtol)
+CARD_SUM_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-5}
+
+
+def tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest, ties to even."""
+    b = x.detach().float().contiguous().numpy().view(np.uint32)
+    b = (b + np.uint32(0xFFF) + ((b >> np.uint32(13)) & np.uint32(1))) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(b.view(np.float32).copy())
+
+
+def tf32_truncate(x):
+    """x's top 19 bits: the TF32 value the tensor cores read from an f32."""
+    b = x.detach().float().contiguous().numpy().view(np.uint32) & np.uint32(0xFFFFE000)
+    return torch.from_numpy(b.view(np.float32).copy())
+
+
+def mm_tf32(a, b, passes, rnd=tf32):
+    """a @ b as the tensor cores take it: TF32 operands (rounded by ``rnd``),
+    exact products, f32 sums; passes 3 splits both operands, 2 only b (a
+    exactly bf16)."""
+    a, b = a.float(), b.float()
+    ah, bh = rnd(a), rnd(b)
+    if passes == 1:
+        return ah @ bh
+    bl = rnd(b - bh)
+    if passes == 2:
+        assert torch.equal(a, ah)  # a needs no lo part
+        return a @ bl + a @ bh
+    al = rnd(a - ah)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def emulated_bwd(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, g_new, g_agg, k, passes, rnd=tf32):
+    """fused_edge_block_bwd_reference with its products taken as the CUDA
+    kernel takes them (``passes`` for every f32 operand)."""
+    def mm(a, b, p):
+        return mm_tf32(a, b, p, rnd)
+
+    dt = e.dtype
+    bf16 = dt == torch.bfloat16
+    r = proj_i.shape[0]
+    e32, xj32 = e.float(), xj.float()
+    # recompute: bf16 operands multiply exactly with an f32 sum
+    ew = e32 @ we.to(dt).float() if bf16 else mm(e32, we, passes)
+    h = ew + xj32 + proj_i.repeat_interleave(k, dim=0) + be
+    a = torch.relu(h).to(dt).float()
+    o = (a @ w2.to(dt).float() if bf16 else mm(a, w2, passes)) + b2
+    xhat, inv = teb._ln_stats(o)
+    g_msg = (g_new.float() + g_agg.float().repeat_interleave(k, dim=0)) * teb._slot_mask(degrees, k)
+    g_xhat = g_msg * lns
+    g_o = inv * (g_xhat - xhat * (g_xhat * xhat).mean(dim=-1, keepdim=True)
+                 - g_xhat.mean(dim=-1, keepdim=True))
+    g_h = torch.where(h > 0, mm(g_o, w2.t(), passes), torch.zeros(()))
+    g_e = (g_new.float() + mm(g_h, we.t(), passes)).to(dt)
+    exact = 2 if bf16 and passes == 3 else passes  # e and a are exactly bf16
+    return (
+        g_e, g_h.to(dt), g_h.reshape(r, k, -1).sum(dim=1).to(dt),
+        mm(e32.t(), g_h, exact), g_h.sum(dim=0),
+        mm(a.t(), g_o, exact), g_o.sum(dim=0),
+        (g_msg * xhat).sum(dim=0), g_msg.sum(dim=0),
+    )
+
+
+def emulation_inputs(rng, r, k, d, bf16):
+    """A few thousand rows at the model's width, xj moved off the ReLU ties
+    (|h| < 0.05 gets +0.1) as the card tests do: a gate that flips between
+    two summation orders changes g_h by a whole g_a."""
+    _, targs, _, tg = both(rng, r, k, d, bf16=bf16)
+    e, xj, proj_i, _, we, be = targs[:6]
+    h = e.float() @ we.to(e.dtype).float() + xj.float() + proj_i.repeat_interleave(k, dim=0) + be
+    targs[1] = torch.where(h.abs() < 0.05, xj.float() + 0.1, xj.float()).to(e.dtype)
+    return targs, tg
+
+
+def row_and_sum_errors(got, want, sums, dtype):
+    """(worst row error over its limit, worst weight-gradient error over its
+    limit): both at most 1 where the card tests would pass."""
+    atol, rtol = CARD_BWD_TOL[dtype]
+    rows = max(float(((a.float() - b.float()).abs() / (atol + rtol * b.float().abs())).max())
+               for a, b in zip(got[:3], want[:3]))
+    wg = max(float(((a - b).abs() / (CARD_SUM_RTOL[dtype] * s + 1e-6)).max())
+             for a, b, s in zip(got[3:], want[3:], sums))
+    return rows, wg
+
+
+@pytest.mark.parametrize("rnd", [tf32, tf32_truncate], ids=["nearest", "truncate"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_three_pass_tf32_meets_the_card_limits(rng, bf16, rnd):
+    r, k, d = 512, 8, 64  # 4,096 edge rows
+    targs, tg = emulation_inputs(rng, r, k, d, bf16)
+    dtype = targs[0].dtype
+    want = teb.fused_edge_block_bwd_reference(*targs, *tg, k)
+    sums = teb.weight_grad_abs_sums(*targs, *tg, k)
+    got = emulated_bwd(*targs, *tg, k, passes=3, rnd=rnd)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+    rows, wg = row_and_sum_errors(got, want, sums, dtype)
+    assert rows <= 1.0, f"rows at {rows:.3g} of the limit"
+    assert wg <= 1.0, f"weight gradients at {wg:.3g} of the limit"
+    if not bf16:  # far inside: the split leaves ~2^-22 relative per product
+        assert rows < 0.1 and wg < 0.1, (rows, wg)
+
+
+def test_single_pass_tf32_fails_the_f32_row_limit(rng):
+    r, k, d = 512, 8, 64
+    targs, tg = emulation_inputs(rng, r, k, d, bf16=False)
+    want = teb.fused_edge_block_bwd_reference(*targs, *tg, k)
+    sums = teb.weight_grad_abs_sums(*targs, *tg, k)
+    rows, _ = row_and_sum_errors(emulated_bwd(*targs, *tg, k, passes=1), want, sums, torch.float32)
+    assert rows > 1.0, f"single-pass TF32 rows at {rows:.3g} of the f32 limit"
+
+
+def test_tf32_rounding_emulation():
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, 1.0 + 2.0**-10 + 2.0**-12, -1.5, 0.0])
+    want = torch.tensor([1.0, 1.0, 1.0 + 2.0**-9, 1.0 + 2.0**-10, -1.5, 0.0])  # ties to even
+    assert torch.equal(tf32(x), want)
+    cut = torch.tensor([1.0, 1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, -1.5, 0.0])  # toward zero
+    assert torch.equal(tf32_truncate(x), cut)
+    assert torch.equal(tf32_truncate(-x), -cut)
+
+
+@pytest.mark.parametrize("name", sorted(ablation.VARIANTS))
+def test_ablation_variants_cut_their_part_from_the_kernel_source(name):
+    """The card-side ablation script removes each part by a pattern of the
+    source text: each must still match the kernel as often as it says."""
+    src = ablation.SOURCE.read_text()
+    variants = ablation.variant_sources(src)
+    assert variants["kernel"] == src
+    pattern, count = ablation.VARIANTS[name]
+    assert len(variants[name]) < len(src)
+    assert not re.findall(pattern, variants[name], flags=re.S)
+
+
+def test_ablation_refuses_a_source_its_patterns_miss():
+    with pytest.raises(ValueError, match="no_tile_loads"):
+        ablation.variant_sources(ablation.SOURCE.read_text().replace("stage_rows<T>(", "stage<T>(", 1))
