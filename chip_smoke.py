@@ -12,8 +12,10 @@ each of which raises on failure:
      nvcc per source, all started together;
   3. kernels: the edge-block forward and backward against their plain
      PyTorch versions on the card, at the listed shapes and at the
-     training shapes of A (f32) and B (bf16); the backward twice on the
-     same inputs, bit for bit; then each kernel and its plain version
+     training shapes of A (f32) and B (bf16), the forward also at ragged
+     tile shapes, D != H and widths beyond the tile, each on the kernel
+     its shape rule picks; the backward twice on the same inputs, bit for
+     bit; then each kernel and its plain version
      timed with CUDA events at the shapes of the paths below, and
      ``index_select`` (the library call of the gather probes) at the
      probes' shape;
@@ -24,7 +26,8 @@ each of which raises on failure:
      domain) and configs/taylor2d_demo_bf16.yaml (B: bf16, batch 16,
      domain from metadata, symmetric gather by the auto-rule), 5 layers,
      hidden 64, r = 0.6, window 11. Each run counts the kernels' launches
-     and the symmetric gather's backward passes, reads its metrics and
+     (every forward launch must be the tensor-core kernel's) and the
+     symmetric gather's backward passes, reads its metrics and
      checkpoint, and is profiled over 3 steps. Then A's loss on one fixed
      batch must fall over 10 steps; one step of each of A and B at full
      width on 2 samples must match the same step on the CPU through the
@@ -74,12 +77,34 @@ REPO = Path(__file__).resolve().parent
 
 # kernel checks: (R, K, D=H); the first is the rollout shape
 SHAPES = [(4864, 8, 64), (4797, 8, 64), (64, 20, 64), (512, 4, 16)]
+# forward only, (R, K, D, H): ragged tiles of the tensor-core kernel (K
+# dividing no tile, R*K below one tile, widths not a multiple of 16, rows
+# loaded element by element, K = 128), D != H, and the warp-per-receiver
+# kernel beyond the tile's width of 64
+FWD_SHAPES = [(301, 7, 64, 64), (9, 7, 64, 64), (200, 8, 40, 40), (50, 7, 21, 21), (5, 128, 64, 64),
+              (300, 8, 48, 64), (300, 8, 64, 40), (37, 3, 96, 96), (300, 8, 128, 128)]
 # forward. f32: the tolerance of tests/test_pallas_edge_block.py (sums of
 # 64 products taken in another order). bf16: the outputs carry 8
 # significant bits, so an f32 sum in another order can flip the rounding
 # of an output (2^-7 relative) or of a message |msg| < 8 (up to 2^-5) that
 # then enters agg.
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0**-4, 2.0**-7)}  # (atol, rtol)
+# f32 agg sums a receiver's K messages, each within the forward's f32 error;
+# the tensor-core kernel's errors share a lean (the card's agg error at
+# K = 128 is several times its CPU emulation's, which rounds every sum to
+# nearest), so they add up with K. TOL holds up to the 20 slots it was set
+# on; past them agg's f32 atol grows as K / 20 (6.4e-5 at K = 128, inside
+# the backward's 1e-4). check_fwd reports both sides' errors against an f64
+# run of the plain version.
+AGG_TOL_SLOTS = 20
+
+
+def fwd_tol(dtype_name, name, k):
+    atol, rtol = TOL[dtype_name]
+    if name == "agg" and dtype_name == "float32":
+        atol *= max(1.0, k / AGG_TOL_SLOTS)
+    return atol, rtol
+
 # backward, g_e / g_xj / g_proj_i. f32: sums of 64 products and the
 # LayerNorm means in another order. bf16: as the forward; a flipped bf16
 # rounding of relu(h) also moves one row's g_o.
@@ -304,12 +329,13 @@ def time_pair(kern, plain, sets, **kw):
                 kernel_ms_runs=[t_kern_a, t_kern_b], plain_ms_runs=[t_plain_a, t_plain_b])
 
 
-def compare_fwd(eb, args, k, dtype_name, where):
+def compare_fwd(eb, args, k, dtype_name, where, exact=False):
     """Max |err| of the kernel's new_e and agg against the plain version
-    on ``args``; raises beyond the tolerance."""
+    on ``args``; raises beyond the tolerance. With ``exact``, also
+    returns the max |err| of agg, the kernel's and the plain version's,
+    against the plain version run in f64."""
     import torch
 
-    atol, rtol = TOL[dtype_name]
     got = eb.edge_block_fwd(*args, k)
     want = eb.fused_edge_block_reference(*args, k)
     torch.cuda.synchronize()
@@ -318,21 +344,40 @@ def compare_fwd(eb, args, k, dtype_name, where):
         a, b = a.float(), b.float()
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f"edge_block_fwd {where} {name}: bad output")
+        atol, rtol = fwd_tol(dtype_name, name, k)
         err = (a - b).abs()
         worst = max(worst, float(err.max()))
         if (err > atol + rtol * b.abs()).any():
             raise AssertionError(f"edge_block_fwd {where} {name}: max |err| {float(err.max()):.3e} "
                                  f"beyond atol {atol} + rtol {rtol}")
-    return worst
+    if not exact:
+        return worst
+    agg64 = eb.fused_edge_block_reference(*[a.double() for a in args], k)[1]
+    return worst, {side: float((t.double() - agg64).abs().max()) for side, t in
+                   (("kernel", got[1]), ("plain", want[1]))}
+
+
+def fwd_variant(eb, k, d, h):
+    """The forward kernel the shape rule of csrc/edge_block_fwd.cu picks."""
+    return "tensor_core" if max(d, h) <= eb.MAX_BWD_WIDTH and k <= eb.MAX_BWD_K else "warp"
 
 
 def check_fwd(eb, dtype_name):
     worst = 0.0
-    for si, (r, k, d) in enumerate(SHAPES):
-        args = edge_inputs(r, k, d, d, dtype_of(dtype_name), seed=si, device="cuda")
-        worst = max(worst, compare_fwd(eb, args, k, dtype_name, f"{dtype_name} {(r, k, d)}"))
-        log(f"kernel edge_block_fwd {dtype_name} R,K,D={r},{k},{d}: ok (max |err| so far {worst:.3e})")
-    return worst
+    shapes = [(r, k, d, d) for r, k, d in SHAPES] + FWD_SHAPES
+    for si, (r, k, d, h) in enumerate(shapes):
+        args = edge_inputs(r, k, d, h, dtype_of(dtype_name), seed=si, device="cuda")
+        before = dict(eb.FWD_VARIANT_LAUNCHES)
+        err, agg_vs_f64 = compare_fwd(eb, args, k, dtype_name, f"{dtype_name} {(r, k, d, h)}", exact=True)
+        worst = max(worst, err)
+        ran = [v for v in before if eb.FWD_VARIANT_LAUNCHES[v] != before[v]]
+        if ran != [fwd_variant(eb, k, d, h)]:
+            raise AssertionError(f"edge_block_fwd {dtype_name} {(r, k, d, h)}: launched {ran}, "
+                                 f"expected {fwd_variant(eb, k, d, h)}")
+        log(f"kernel edge_block_fwd {dtype_name} R,K,D,H={r},{k},{d},{h} ({ran[0]}): ok, max |err| {err:.3e} "
+            f"(so far {worst:.3e}); agg vs an f64 run: kernel {agg_vs_f64['kernel']:.3e}, "
+            f"plain {agg_vs_f64['plain']:.3e}")
+    return worst, shapes
 
 
 def compare_bwd(eb, got, want, sums, dtype_name, where):
@@ -396,7 +441,7 @@ def phase_kernels(train_rows):
     results = {"edge_block_fwd": {}, "edge_block_bwd": {}}
     for dtype_name in ("float32", "bfloat16"):
         dtype = dtype_of(dtype_name)
-        fwd_err = check_fwd(eb, dtype_name)
+        fwd_err, fwd_shapes = check_fwd(eb, dtype_name)
         bwd_err = check_bwd(eb, dtype_name)
         k, d = 8, 64
 
@@ -417,11 +462,14 @@ def phase_kernels(train_rows):
         del sets
         results["edge_block_fwd"][dtype_name] = dict(
             fwd, max_abs_err=fwd_err, errors_at_training_shape={"max_abs_err": fwd_train_err},
-            checked_shapes=[*SHAPES, (r, k, d)],
-            tol={"atol": TOL[dtype_name][0], "rtol": TOL[dtype_name][1]}, at_rollout_shape=roll,
+            checked_shapes=[*fwd_shapes, (r, k, d, d)],
+            tol={"atol": TOL[dtype_name][0], "rtol": TOL[dtype_name][1],
+                 "agg_atol": f"atol * max(1, K / {AGG_TOL_SLOTS})" if dtype_name == "float32" else "atol"},
+            at_rollout_shape=roll,
         )
         log(f"time edge_block_fwd {dtype_name} R,K,D={r},{k},{d}: kernel {fwd['ms'] * 1e3:.2f} us, "
-            f"plain {fwd['plain_ms'] * 1e3:.2f} us, bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']}); "
+            f"plain {fwd['plain_ms'] * 1e3:.2f} us, bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']}, "
+            f"{fwd['bound_ms'] / fwd['ms']:.3f} of the kernel's time); "
             f"at R={SHAPES[0][0]}: kernel {roll['ms'] * 1e3:.2f} us, plain {roll['plain_ms'] * 1e3:.2f} us, "
             f"bound {roll['bound_ms'] * 1e3:.2f} us")
 
@@ -517,12 +565,17 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
 
     torch.cuda.synchronize()
     eb.LAUNCHES = eb.BWD_LAUNCHES = sg.BWD_CALLS = 0
+    reset_fwd_variant_launches()
     t0 = time.perf_counter()
     result = train(cfg)  # the port's entry point, on CUDA by default
     got = dict(fwd=eb.LAUNCHES, bwd=eb.BWD_LAUNCHES, sym_bwd=sg.BWD_CALLS)
+    variants = dict(eb.FWD_VARIANT_LAUNCHES)
     wall_s = time.perf_counter() - t0
     if got != expect:
         raise AssertionError(f"train {name}: launches {got}, expected {expect}")
+    if variants != {"tensor_core": expect["fwd"], "warp": 0}:
+        raise AssertionError(f"train {name}: edge_block_fwd launches by kernel {variants}, expected "
+                             f"only the tensor-core kernel's {expect['fwd']}")
     if result["step"] != TRAIN_STEPS or not math.isfinite(result["lowest_eval_loss"]):
         raise AssertionError(f"train {name}: {result}")
     run_dir = Path(cfg.model_path) / cfg.run_name
@@ -542,6 +595,7 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
         config=name, compute_dtype=cfg.compute_dtype, batch_size=cfg.batch_size,
         receivers=cfg.batch_size * nodes, slots=sim_cfg.slots,
         symmetric_gather=sim_cfg.symmetric_gather, launches=got, expected_launches=expect,
+        fwd_launches_by_kernel=variants,
         ms_per_step_11_20=train_rec[-1]["train/step_time_s"] * 1e3,
         ms_per_step_1_10=train_rec[0]["train/step_time_s"] * 1e3,
         train_loss=[r["train/loss"] for r in train_rec], val_loss=[r["val/loss"] for r in val_rec],
@@ -776,12 +830,17 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eb.LAUNCHES = eb.BWD_LAUNCHES = 0
+    reset_fwd_variant_launches()
     summary = predict(cfg)  # the port's entry point, on CUDA by default
     launches, bwd_launches = eb.LAUNCHES, eb.BWD_LAUNCHES
+    variants = dict(eb.FWD_VARIANT_LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     if launches != expected or bwd_launches != 0:
         raise AssertionError(f"rollout: edge_block_fwd launched {launches} times (expected {expected}), "
                              f"edge_block_bwd {bwd_launches}")
+    if variants != {"tensor_core": expected, "warp": 0}:
+        raise AssertionError(f"rollout: edge_block_fwd launches by kernel {variants}, expected only the "
+                             f"tensor-core kernel's {expected}")
     if not math.isfinite(summary["total"]):
         raise AssertionError(f"non-finite rollout loss {summary}")
 
@@ -802,6 +861,7 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
     ms_step = warm["run_time"] / n_steps * 1e3
     result = dict(
         compute_dtype=compute_dtype, launches=launches, expected_launches=expected,
+        fwd_launches_by_kernel=variants,
         launches_per_step=launches / steps, steps=steps, nodes=loader.num_nodes,
         slots=sim_cfg.slots, ms_per_step=ms_step, steps_per_s=1e3 / ms_step,
         first_trajectory_s=outs[0]["run_time"], peak_memory_mb=peak_mb,
@@ -962,6 +1022,13 @@ def phase_row_gather(data: Path, dev):
     fastest = min(rg.VARIANTS, key=lambda v: sum(results[v][c]["ms"] for c in ("m2m_senders_float32", "m2g_senders_float32")))
     log(f"row_gather: fastest at the multi-scale f32 sender gathers: {fastest}; the model calls {rg.MODEL_VARIANT}")
     return dict(results=results, max_abs_err=worst, checked=sorted(checks), fastest_at_ms_shapes=fastest)
+
+
+def reset_fwd_variant_launches():
+    from sgnn_tpu_torch.ops import edge_block as eb
+
+    for v in eb.FWD_VARIANT_LAUNCHES:
+        eb.FWD_VARIANT_LAUNCHES[v] = 0
 
 
 def reset_gather_launches():
@@ -1269,8 +1336,11 @@ def main() -> int:
         for dt, res in kernel_results[kname].items():
             tr = by_dtype[dt]
             per_path = {f"train_{tr['config']}": tr["launches"]["fwd" if kname == "edge_block_fwd" else "bwd"]}
+            by_kernel = {}
             if kname == "edge_block_fwd":
                 per_path[f"rollout_{dt}"] = rollouts[dt]["launches"]
+                by_kernel = {f"train_{tr['config']}": tr["fwd_launches_by_kernel"],
+                             f"rollout_{dt}": rollouts[dt]["fwd_launches_by_kernel"]}
             entry = dict(
                 name=kname, route="cuda", source=src, replaces=replaces,
                 launches=per_path[f"train_{tr['config']}"], launches_by_path=per_path,
@@ -1280,8 +1350,9 @@ def main() -> int:
                 bound_by=res["bound_by"], library_ms=None, bytes=res["bytes"], flops=res["flops"],
                 kernel_ms_runs=res["kernel_ms_runs"], plain_ms_runs=res["plain_ms_runs"],
             )
-            if kname == "edge_block_bwd":
-                entry["bound_share"] = res["bound_ms"] / res["ms"]
+            entry["bound_share"] = res["bound_ms"] / res["ms"]
+            if by_kernel:
+                entry["launches_by_kernel"] = by_kernel
             if "at_rollout_shape" in res:
                 entry["at_rollout_shape"] = {k: res["at_rollout_shape"][k] for k in
                                              ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}

@@ -46,7 +46,7 @@
 //     weights load once per block: We and W2 as TF32 hi and lo parts, and
 //     for bf16 the bf16-rounded transposes the recompute multiplies by.
 //   * the four row products (h, o, g_o W2^T, g_h We^T) are 16x64x64 warp
-//     GEMMs. An f32 operand x is split as hi + lo (hi = x's top 19 bits,
+//     GEMMs. An f32 operand x is split as hi + lo (hi = x rounded to TF32,
 //     lo = x - hi) and each product is lo*hi + hi*lo + hi*hi ("3xTF32", the
 //     small terms first) in mma.m16n8k8 TF32; an operand that is exactly
 //     bf16 (e and a in bf16) is exact in TF32 and needs no lo part (2
@@ -66,93 +66,23 @@
 //     kernel sums the partials in block order. The grid depends only on
 //     the shapes and the card and no float atomics are used, so two
 //     launches on the same inputs give the same bits.
-// The ReLU gate is the one this recompute finds; the forward kernel sums
-// e @ We in another order, so where |h| is within rounding of 0 the two
-// may disagree (as do two f32 sums in different orders anywhere).
+// The recompute of h, a and o (and the tile machinery) is the forward
+// kernel's own (edge_block_tile.cuh), so the ReLU gate and, in bf16, the
+// rounding of a are the ones the forward took, bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "edge_block_tile.cuh"
+
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileRows = 16 * kWarps;  // edge rows per tile
-constexpr int kMaxK = kTileRows;        // slots a tile must hold of one receiver
-constexpr int kP = 64;                  // padded width: D, H <= 64
-constexpr int kLd = kP + 4;             // f32 row stride in shared memory (words)
-constexpr int kLdb = kP + 8;            // bf16 row stride of the transposed weights
-constexpr int kRowBytes = kLd * 4;      // stride of the f32 rows and of staged rows
-constexpr float kLnEps = 1e-5f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T's precision, as f32 (identity for float)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
-
-// x = hi + lo: hi keeps x's top 19 bits (a TF32 value), lo = x - hi is
-// exact in f32; the tensor cores read lo's top 19 bits, so hi + lo carries
-// x to ~2^-21 relative. Two full-rate ops, no conversion instruction.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
-}
 
 // Floats of one block's partial: g_we [D,H], g_be [H], g_w2 [H,D], g_b2,
 // g_lns, g_lnb [D] (the order of _bwd_kernel's outputs).
 __host__ __device__ __forceinline__ int partial_floats(int D, int H) {
   return 2 * D * H + H + 3 * D;
-}
-
-// e's staged row: 64 T elements, padded to a stride of 4 words mod 32 banks
-template <typename T>
-__host__ __device__ constexpr int e_row_bytes() {
-  return kP * static_cast<int>(sizeof(T)) + 16;
 }
 
 template <typename T>
@@ -162,78 +92,6 @@ __host__ __device__ constexpr size_t shared_bytes() {
          + 4ull * kP * kLd * 4                                 // We, W2 hi and lo
          + (sizeof(T) == 2 ? 2ull * kP * kLdb * 2 : 0)         // bf16 We^T, W2^T
          + 4ull * kP * 4;                                      // be, b2, lns, lnb
-}
-
-// Stage rows [0, n) of a [*, W] T array into shared rows of `stride` bytes.
-template <typename T>
-__device__ __forceinline__ void stage_rows(char* dst, int stride, const T* src, int n, int W,
-                                           bool vec) {
-  if (vec) {
-    const int pieces = W * static_cast<int>(sizeof(T)) / 16;
-    const char* s = reinterpret_cast<const char*>(src);
-    for (int i = threadIdx.x; i < n * pieces; i += kThreads) {
-      const int row = i / pieces, p = i - row * pieces;
-      cp_async16(dst + row * stride + p * 16, s + (static_cast<int64_t>(row) * pieces + p) * 16);
-    }
-  } else {
-    for (int i = threadIdx.x; i < n * W; i += kThreads) {
-      const int row = i / W, c = i - row * W;
-      reinterpret_cast<T*>(dst + row * stride)[c] = src[static_cast<int64_t>(row) * W + c];
-    }
-  }
-}
-
-// acc[j] (n-tile j: columns 8j..8j+7) += A[16 x 64] @ B[64 x 64] for the
-// warp's 16 rows, 3xTF32 (2x when A is exactly bf16). A: rows of stride kLd
-// words at `a`. B(k, n) = w[k * kLd + n], or w[n * kLd + k] if TRANS, with
-// its TF32 hi and lo parts.
-template <bool SPLIT_A, bool TRANS>
-__device__ __forceinline__ void warp_gemm_tf32(float (&acc)[8][4], const float* a,
-                                               const float* w_hi, const float* w_lo, int g,
-                                               int t) {
-#pragma unroll 2
-  for (int kk = 0; kk < kP; kk += 8) {
-    const float av[4] = {a[g * kLd + kk + t], a[(g + 8) * kLd + kk + t],
-                         a[g * kLd + kk + t + 4], a[(g + 8) * kLd + kk + t + 4]};
-    uint32_t ahi[4], alo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (SPLIT_A)
-        split(av[i], ahi[i], alo[i]);
-      else
-        ahi[i] = __float_as_uint(av[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = 8 * j + g;
-      const int i0 = TRANS ? n * kLd + kk + t : (kk + t) * kLd + n;
-      const int i1 = TRANS ? i0 + 4 : i0 + 4 * kLd;
-      const uint32_t bh0 = __float_as_uint(w_hi[i0]), bh1 = __float_as_uint(w_hi[i1]);
-      const uint32_t bl0 = __float_as_uint(w_lo[i0]), bl1 = __float_as_uint(w_lo[i1]);
-      if (SPLIT_A) mma_tf32(acc[j], alo, bh0, bh1);
-      mma_tf32(acc[j], ahi, bl0, bl1);
-      mma_tf32(acc[j], ahi, bh0, bh1);
-    }
-  }
-}
-
-// acc[j] += A[16 x 64] @ B[64 x 64] in bf16 -> f32. A(row, k) from load_a
-// (a 32-bit pair of columns k, k+1); B^T rows of kLdb bf16 at wt: B(k, n) =
-// wt[n * kLdb + k].
-template <typename LoadA>
-__device__ __forceinline__ void warp_gemm_bf16(float (&acc)[8][4], LoadA load_a,
-                                               const __nv_bfloat16* wt, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kP; kk += 16) {
-    const uint32_t a[4] = {load_a(g, kk + 2 * t), load_a(g + 8, kk + 2 * t),
-                           load_a(g, kk + 2 * t + 8), load_a(g + 8, kk + 2 * t + 8)};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat16* col = wt + (8 * j + g) * kLdb + kk + 2 * t;
-      mma_bf16(acc[j], a, *reinterpret_cast<const uint32_t*>(col),
-               *reinterpret_cast<const uint32_t*>(col + 8));
-    }
-  }
 }
 
 // acc[q] (output rows 16m.., columns n0 + 8q..) += X^T @ Y over the tile's
@@ -309,23 +167,6 @@ __device__ __forceinline__ void store_pair(T* dst, int c, int width, float a, fl
   }
 }
 
-// (row[c], row[c + 1]) in f32, c even, zero past `width`: one 2-element load
-// where `pairs` says the pair is aligned and inside the row
-__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-template <typename T>
-__device__ __forceinline__ float2 load_pair(const T* row, int c, int width, bool pairs) {
-  if (pairs) return load2(row + c);
-  return make_float2(to_f32(row[c]), c + 1 < width ? to_f32(row[c + 1]) : 0.f);
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_block_bwd_kernel(const T* __restrict__ e, const T* __restrict__ xj,
@@ -360,28 +201,8 @@ edge_block_bwd_kernel(const T* __restrict__ e, const T* __restrict__ xj,
   for (int i = tid; i < static_cast<int>(shared_bytes<T>() / 4); i += kThreads)
     reinterpret_cast<float*>(smem)[i] = 0.f;
   __syncthreads();
-  for (int i = tid; i < kP * kP; i += kThreads) {
-    const int r = i / kP, c = i % kP;
-    const float wv = r < D && c < H ? we[r * H + c] : 0.f;  // We[r][c]
-    const float w2v = r < H && c < D ? w2[r * D + c] : 0.f;  // W2[r][c]
-    uint32_t hi, lo;
-    split(wv, hi, lo);
-    s_we_hi[r * kLd + c] = __uint_as_float(hi);
-    s_we_lo[r * kLd + c] = __uint_as_float(lo);
-    split(w2v, hi, lo);
-    s_w2_hi[r * kLd + c] = __uint_as_float(hi);
-    s_w2_lo[r * kLd + c] = __uint_as_float(lo);
-    if (kBf16) {
-      s_wet_b[c * kLdb + r] = __float2bfloat16_rn(wv);
-      s_w2t_b[c * kLdb + r] = __float2bfloat16_rn(w2v);
-    }
-  }
-  if (tid < kP) {
-    s_vec[tid] = tid < H ? be[tid] : 0.f;
-    s_vec[kP + tid] = tid < D ? b2[tid] : 0.f;
-    s_vec[2 * kP + tid] = tid < D ? lns[tid] : 0.f;
-    s_vec[3 * kP + tid] = tid < D ? lnb[tid] : 0.f;
-  }
+  const TileWeights tw{s_we_hi, s_we_lo, s_w2_hi, s_w2_lo, s_wet_b, s_w2t_b, s_vec};
+  stage_weights<T, true>(tw, we, be, w2, b2, lns, lnb, D, H);
 
   // weight-gradient fragments: rows 16*(warp/2).., columns 32*(warp%2)..
   const int wm0 = 16 * (warp >> 1), wn0 = 32 * (warp & 1);
@@ -430,88 +251,16 @@ edge_block_bwd_kernel(const T* __restrict__ e, const T* __restrict__ xj,
     int rl[2], recv[2];
     bool valid[2];
     float keep[2];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      rl[hr] = row0 + g + 8 * hr;
-      valid[hr] = rl[hr] < nrows;
-      const int lr = valid[hr] ? rl[hr] / K : 0;
-      recv[hr] = r0 + lr;
-      keep[hr] = valid[hr] && static_cast<float>(rl[hr] - lr * K) < degrees[recv[hr]] ? 1.f : 0.f;
-    }
+    tile_rows(rl, recv, valid, keep, degrees, row0, nrows, r0, K, g);
 
-    // ---- h = e @ We + xj + proj_i + be;  a = relu(h) rounded to T ----
+    // ---- h, a (into s_a), o + b2 and its LayerNorm moments ----
     float acc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-    if constexpr (kBf16) {
-      const char* ew = s_e + row0 * kEStride;
-      warp_gemm_bf16(acc, [&](int r, int k) {
-        return *reinterpret_cast<const uint32_t*>(ew + r * kEStride + 2 * k);
-      }, s_wet_b, g, t);
-    } else {
-      warp_gemm_tf32<true, false>(acc, reinterpret_cast<const float*>(s_e) + row0 * kLd,
-                                  s_we_hi, s_we_lo, g, t);
-    }
-    uint32_t gate = 0;  // bit 4j + i: h > 0 at fragment entry (j, i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int hr = i >> 1, c = 8 * j + 2 * t + (i & 1);
-        const T* xs = reinterpret_cast<const T*>(reinterpret_cast<const char*>(s_a) + rl[hr] * kRowBytes);
-        const bool in = valid[hr] && c < H;
-        const float x = in ? to_f32(xs[c]) : 0.f;
-        const float pi = in ? proj_i[static_cast<int64_t>(recv[hr]) * H + c] : 0.f;
-        const float hv = ((acc[j][i] + x) + pi) + s_vec[c];
-        if (hv > 0.f) gate |= 1u << (4 * j + i);
-        acc[j][i] = round_to<T>(fmaxf(hv, 0.f));
-      }
-    __syncwarp();  // every lane has read its xj before a overwrites it
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s_a[(rl[i >> 1]) * kLd + 8 * j + 2 * t + (i & 1)] = acc[j][i];
-    __syncwarp();
-
-    // ---- o = a @ W2 + b2; LayerNorm backward -> g_o ----
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-    if constexpr (kBf16) {
-      const float* aw = s_a + row0 * kLd;
-      warp_gemm_bf16(acc, [&](int r, int k) { return pack_bf16(aw[r * kLd + k], aw[r * kLd + k + 1]); },
-                     s_w2t_b, g, t);
-    } else {
-      warp_gemm_tf32<true, false>(acc, s_a + row0 * kLd, s_w2_hi, s_w2_lo, g, t);
-    }
-    float gn[8][4];  // g_new at the thread's entries, kept for g_e
     float mu[2], inv[2];
-    {
-      float s1[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = 8 * j + 2 * t + (i & 1);
-          acc[j][i] += s_vec[kP + c];
-          if (c < D) s1[i >> 1] += acc[j][i];
-        }
-      float s2[2] = {0.f, 0.f};
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) mu[hr] = quad_sum(s1[hr]) * inv_d;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float dv = acc[j][i] - mu[i >> 1];
-          if (8 * j + 2 * t + (i & 1) < D) s2[i >> 1] += dv * dv;
-        }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) inv[hr] = rsqrtf(quad_sum(s2[hr]) * inv_d + kLnEps);
-    }
+    const uint32_t gate =
+        recompute_tile<T>(acc, mu, inv, s_e, s_a, tw, proj_i, rl, recv, valid, row0, D, H, inv_d, g, t);
+
+    // ---- LayerNorm backward -> g_o ----
+    float gn[8][4];  // g_new at the thread's entries, kept for g_e
     {
       float l1[2] = {0.f, 0.f}, l2[2] = {0.f, 0.f};
       float gm[8][4];
@@ -719,8 +468,6 @@ cudaError_t grid_size(int R, int K, int* grid) {
   *grid = static_cast<int>(tiles < cap ? tiles : cap);
   return cudaSuccess;
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 template <typename T>
 cudaError_t launch(const void* const* in, void* g_e, void* g_xj, void* g_proj_i, float* partials,

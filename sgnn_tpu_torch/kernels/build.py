@@ -7,9 +7,11 @@ at first use, with::
        -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``build/kernels/`` under the repository root (the ``build/`` entry of
-``.gitignore`` keeps it out of git). The library name carries a hash of
-the source and flags, so an edited source is rebuilt and a stale library
-is never loaded. ``build_all`` starts one nvcc per source, all at once.
+``.gitignore`` keeps it out of git). A source may include the headers of
+``csrc`` (``*.cuh``); they are no sources of their own. The library name
+carries a hash of the source, every header and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
+``build_all`` starts one nvcc per source, all at once.
 
 The ``sm_90a`` target (Hopper) is the only one built. Nothing is compiled
 or loaded when this module is imported.
@@ -54,10 +56,17 @@ def nvcc_path() -> str:
     return found
 
 
+def headers() -> List[Path]:
+    """The headers a source may include (``csrc/*.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in headers():
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, nvcc: str) -> Optional[subprocess.Popen]:

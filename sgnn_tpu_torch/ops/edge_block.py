@@ -18,7 +18,13 @@ and the LayerNorm statistics from them. On CPU tensors both directions
 run the plain versions (``fused_edge_block_reference``,
 ``fused_edge_block_bwd_reference``); on CUDA tensors they launch
 ``csrc/edge_block_fwd.cu`` and ``csrc/edge_block_bwd.cu`` (built at first
-use) or raise. ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
+use) or raise. ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches,
+``FWD_VARIANT_LAUNCHES`` the forward's by the kernel that ran.
+
+The forward's kernel is chosen by shape alone: the tensor-core tile kernel
+(128-row tiles of whole receivers, the backward's layout) where
+max(D, H) <= 64 and K <= 128, which covers every model of the repository;
+else the warp-per-receiver kernel, for D and H up to 128 and any K.
 """
 
 from __future__ import annotations
@@ -33,14 +39,18 @@ from sgnn_tpu_torch.kernels import build
 LN_EPS = 1e-5
 KERNEL = "edge_block_fwd"
 BWD_KERNEL = "edge_block_bwd"
-MAX_WIDTH = 128  # D and H the forward kernel's register tiling covers
-MAX_BWD_WIDTH = 64  # D and H the backward kernel's tiles cover
+MAX_WIDTH = 128  # D and H the forward's warp-per-receiver kernel covers
+MAX_BWD_WIDTH = 64  # D and H the tiles of the backward and the forward's tensor-core kernel cover
 MAX_BWD_K = 128  # slots per receiver: one receiver's rows must fit a 128-row tile
 
 # Kernel launches since the last reset (plain counters: callers set them
 # to 0 and read them to show which path ran through the kernels).
+# the forward's kernels, by the code sgnn_edge_block_fwd_variant returns
+FWD_VARIANTS = ("tensor_core", "warp")
+
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_VARIANT_LAUNCHES = dict.fromkeys(FWD_VARIANTS, 0)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARG_NAMES = ("e", "xj", "proj_i", "degrees", "we", "be", "w2", "b2", "lns", "lnb")
@@ -228,6 +238,8 @@ def _bind_fwd(lib: ctypes.CDLL) -> None:
         return
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.sgnn_edge_block_fwd_variant.argtypes = [ctypes.c_int] * 3
+    lib.sgnn_edge_block_fwd_variant.restype = ctypes.c_int
     lib.sgnn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sgnn_cuda_error_string.restype = ctypes.c_char_p
 
@@ -253,23 +265,35 @@ def _device_of(e):
 
 def edge_block_fwd(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, k: int):
     """The forward on its own (no autograd): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
+    tensors, a CUDA kernel for CUDA tensors (the tensor-core kernel where
+    max(D, H) <= 64 and K <= 128, else the warp-per-receiver kernel)."""
     global LAUNCHES
+    args = (e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb)
     if _device_of(e) == "cpu":
-        return fused_edge_block_reference(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, k)
-    r, d, h = _check(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, k)
-    lib = build.load(KERNEL)
+        return fused_edge_block_reference(*args, k)
+    _check(*args, k)
+    new_e, agg, variant = _launch_fwd(build.load(KERNEL), args, k)
+    LAUNCHES += 1
+    FWD_VARIANT_LAUNCHES[variant] += 1
+    return new_e, agg
+
+
+def _launch_fwd(lib: ctypes.CDLL, args, k: int):
+    """Launch the forward of the library ``lib`` (``csrc/edge_block_fwd.cu``
+    or a build of it) on checked CUDA tensors; returns (new_e, agg, the
+    name of the kernel it chose)."""
     _bind_fwd(lib)
+    e, proj_i = args[0], args[2]
+    r, d, h = proj_i.shape[0], e.shape[1], proj_i.shape[1]
     new_e = torch.empty_like(e)
     agg = torch.empty((r, d), dtype=e.dtype, device=e.device)
     with torch.cuda.device(e.device):
         stream = torch.cuda.current_stream(e.device).cuda_stream
-        ptrs = [t.data_ptr() for t in (e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, new_e, agg)]
+        ptrs = [t.data_ptr() for t in (*args, new_e, agg)]
         err = lib.sgnn_edge_block_fwd(*ptrs, r, k, d, h, _DTYPE_CODE[e.dtype], stream)
     if err != 0:
         raise _error(lib, err, KERNEL)
-    LAUNCHES += 1
-    return new_e, agg
+    return new_e, agg, FWD_VARIANTS[lib.sgnn_edge_block_fwd_variant(k, d, h)]
 
 
 def edge_block_bwd(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, g_new, g_agg, k: int):

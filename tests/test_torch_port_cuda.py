@@ -19,6 +19,20 @@ pytestmark = pytest.mark.cuda
 # f32: sums of 64 products in another order; bf16: 8 significant bits,
 # a flipped rounding of an output (2^-7 rel) or of a message entering agg
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0**-4, 2.0**-7)}  # (atol, rtol)
+# f32 agg sums a receiver's K messages, each within the forward's f32 error;
+# the tensor-core kernel's errors share a lean (the card's agg error at
+# K = 128 is several times its CPU emulation's, which rounds every sum to
+# nearest), so they add up with K. TOL holds up to the 20 slots it was set
+# on; past them agg's f32 atol grows as K / 20 (6.4e-5 at K = 128, inside
+# the backward's 1e-4).
+AGG_TOL_SLOTS = 20
+
+
+def _fwd_tol(dtype, name, k):
+    atol, rtol = TOL[dtype]
+    if name == "agg" and dtype == torch.float32:
+        atol *= max(1.0, k / AGG_TOL_SLOTS)
+    return atol, rtol
 # backward, elementwise outputs (g_e, g_xj, g_proj_i). f32: sums of 64
 # products and the LayerNorm means in another order. bf16: as the forward,
 # and a flipped bf16 rounding of relu(h) moves one row's g_o.
@@ -39,18 +53,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(r, k, d, dtype, device, seed=0):
+def _inputs(r, k, d, dtype, device, seed=0, h=None):
+    """Forward inputs with D = d and H = h (default d)."""
+    h = d if h is None else h
     g = torch.Generator().manual_seed(seed)
     degrees = torch.randint(0, k + 1, (r, 1), generator=g).float()
     mask = (torch.arange(k).repeat(r)[:, None] < degrees.repeat_interleave(k, dim=0)).float()
     args = [
         (torch.randn(r * k, d, generator=g) * mask).to(dtype),
-        torch.randn(r * k, d, generator=g).to(dtype),
-        torch.randn(r, d, generator=g),
+        torch.randn(r * k, h, generator=g).to(dtype),
+        torch.randn(r, h, generator=g),
         degrees,
-        torch.randn(d, d, generator=g) * 0.2,
-        torch.randn(d, generator=g) * 0.1,
-        torch.randn(d, d, generator=g) * 0.2,
+        torch.randn(d, h, generator=g) * 0.2,
+        torch.randn(h, generator=g) * 0.1,
+        torch.randn(h, d, generator=g) * 0.2,
         torch.randn(d, generator=g) * 0.1,
         1.0 + 0.1 * torch.randn(d, generator=g),
         0.1 * torch.randn(d, generator=g),
@@ -86,19 +102,71 @@ def _check_bwd(got, want, sums, dtype):
         assert not over.any(), f"{name}: max |err| {float((a - b).abs().max()):.3e}"
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("r,k,d", [(4864, 8, 64), (4797, 8, 64), (64, 20, 64), (512, 4, 16), (37, 3, 96)])
-def test_kernel_matches_plain(cuda, r, k, d, dtype):
-    args = _inputs(r, k, d, dtype, cuda)
-    before = eb.LAUNCHES
+def _fwd_variant(k, d, h):
+    """The forward kernel the shape rule picks (csrc/edge_block_fwd.cu)."""
+    return "tensor_core" if max(d, h) <= eb.MAX_BWD_WIDTH and k <= eb.MAX_BWD_K else "warp"
+
+
+def _check_fwd(args, k, dtype):
+    """One forward launch against the plain version; asserts which kernel
+    ran and returns its outputs."""
+    d, h = args[0].shape[1], args[1].shape[1]
+    before = (eb.LAUNCHES, dict(eb.FWD_VARIANT_LAUNCHES))
     got = eb.fused_edge_block(*args, k)
-    assert eb.LAUNCHES == before + 1
+    variant = _fwd_variant(k, d, h)
+    assert eb.LAUNCHES == before[0] + 1
+    assert eb.FWD_VARIANT_LAUNCHES == {**before[1], variant: before[1][variant] + 1}
     want = eb.fused_edge_block_reference(*args, k)
     torch.cuda.synchronize()
-    atol, rtol = TOL[dtype]
-    for a, b in zip(got, want):
+    for name, a, b in zip(("new_e", "agg"), got, want):
         assert a.dtype == dtype and a.shape == b.shape
-        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+        atol, rtol = _fwd_tol(dtype, name, k)
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol, msg=name)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("r,k,d", [
+    (4864, 8, 64), (4797, 8, 64), (64, 20, 64), (512, 4, 16),
+    # shapes that cut the tensor-core kernel's 128-row tiles raggedly
+    (301, 7, 64),  # K divides no tile: 18 receivers = 126 rows per tile
+    (9, 7, 64),  # R*K below one tile
+    (200, 8, 40),  # D = H = 40, not a multiple of 16
+    (50, 7, 21),  # rows of 84 / 42 bytes: loaded and stored element by element
+    (5, 128, 64),  # the largest K: one receiver per tile
+    # the warp-per-receiver kernel: wider than the tile
+    (37, 3, 96), (300, 8, 128),
+])
+def test_kernel_matches_plain(cuda, r, k, d, dtype):
+    _check_fwd(_inputs(r, k, d, dtype, cuda), k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("r,k,d", [(4864, 8, 64), (301, 7, 64), (50, 7, 21), (37, 3, 96)])
+def test_fwd_kernel_repeats_bits(cuda, r, k, d, dtype):
+    args = _inputs(r, k, d, dtype, cuda, seed=5)
+    once = eb.edge_block_fwd(*args, k)
+    twice = eb.edge_block_fwd(*args, k)
+    torch.cuda.synchronize()
+    for a, b in zip(once, twice):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("r,k,d,h", [(300, 8, 48, 64), (300, 8, 64, 40)])
+def test_rectangular_weights_fwd_and_bwd(cuda, r, k, d, h, dtype):
+    """D != H (we [D, H], w2 [H, D]) through both kernels."""
+    args = _away_from_relu_ties(_inputs(r, k, d, dtype, cuda, seed=6, h=h), k)
+    _check_fwd(args, k, dtype)
+    g_new, g_agg = _cotangents(r, k, d, dtype, cuda, seed=7)
+    got = eb.edge_block_bwd(*args, g_new, g_agg, k)
+    again = eb.edge_block_bwd(*args, g_new, g_agg, k)
+    want = eb.fused_edge_block_bwd_reference(*args, g_new, g_agg, k)
+    torch.cuda.synchronize()
+    assert [tuple(t.shape) for t in got[:4]] == [(r * k, d), (r * k, h), (r, h), (d, h)]
+    _check_bwd(got, want, eb.weight_grad_abs_sums(*args, g_new, g_agg, k), dtype)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from sgnn_tpu.experimental import edge_block as jeb
 from sgnn_tpu_torch.ops import edge_block as teb
 from sgnn_tpu_torch.scripts import edge_block_bwd_ablation as ablation
+from _edge_block_emulation import KERNEL_SPLIT, emulated_bwd, tf32, tf32_truncate
 
 torch.set_num_threads(1)
 
@@ -158,78 +159,12 @@ def test_bwd_check_refuses_more_slots_than_a_tile(rng):
         teb._check_bwd(targs, *tg, k)
 
 
-# The CUDA backward computes its products on tensor cores: every product
-# with an f32 operand as 3xTF32 (x = hi + lo, lo*hi + hi*lo + hi*hi with
-# f32 sums), 2 passes where one operand is exactly bf16, and bf16's two
-# recompute products natively in bf16 with an f32 sum. The kernel splits by
-# truncation (hi = x's top 19 bits, lo = x - hi, whose low 13 bits the tensor
-# cores ignore); the emulation holds that and round-to-nearest-even alike. The emulation below
-# repeats that arithmetic on the CPU and holds it to the card tests' limits
-# (tests/test_torch_port_cuda.py, chip_smoke.py): rows BWD_TOL, weight
-# gradients SUM_RTOL * sum|terms| + 1e-6. Single-pass TF32 must fail the f32
-# row limit on the same inputs, which is why the kernel takes three passes.
+# The CUDA backward's arithmetic, emulated on the CPU (tests/_edge_block_emulation.py),
+# is held to the card tests' limits (tests/test_torch_port_cuda.py, chip_smoke.py): rows
+# BWD_TOL, weight gradients SUM_RTOL * sum|terms| + 1e-6. Single-pass TF32 must fail the
+# f32 row limit on the same inputs, which is why the kernel takes three passes.
 CARD_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0**-4, 2.0**-7)}  # (atol, rtol)
 CARD_SUM_RTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-5}
-
-
-def tf32(x):
-    """x rounded to TF32 (10 mantissa bits), to nearest, ties to even."""
-    b = x.detach().float().contiguous().numpy().view(np.uint32)
-    b = (b + np.uint32(0xFFF) + ((b >> np.uint32(13)) & np.uint32(1))) & np.uint32(0xFFFFE000)
-    return torch.from_numpy(b.view(np.float32).copy())
-
-
-def tf32_truncate(x):
-    """x's top 19 bits: the TF32 value the tensor cores read from an f32."""
-    b = x.detach().float().contiguous().numpy().view(np.uint32) & np.uint32(0xFFFFE000)
-    return torch.from_numpy(b.view(np.float32).copy())
-
-
-def mm_tf32(a, b, passes, rnd=tf32):
-    """a @ b as the tensor cores take it: TF32 operands (rounded by ``rnd``),
-    exact products, f32 sums; passes 3 splits both operands, 2 only b (a
-    exactly bf16)."""
-    a, b = a.float(), b.float()
-    ah, bh = rnd(a), rnd(b)
-    if passes == 1:
-        return ah @ bh
-    bl = rnd(b - bh)
-    if passes == 2:
-        assert torch.equal(a, ah)  # a needs no lo part
-        return a @ bl + a @ bh
-    al = rnd(a - ah)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-def emulated_bwd(e, xj, proj_i, degrees, we, be, w2, b2, lns, lnb, g_new, g_agg, k, passes, rnd=tf32):
-    """fused_edge_block_bwd_reference with its products taken as the CUDA
-    kernel takes them (``passes`` for every f32 operand)."""
-    def mm(a, b, p):
-        return mm_tf32(a, b, p, rnd)
-
-    dt = e.dtype
-    bf16 = dt == torch.bfloat16
-    r = proj_i.shape[0]
-    e32, xj32 = e.float(), xj.float()
-    # recompute: bf16 operands multiply exactly with an f32 sum
-    ew = e32 @ we.to(dt).float() if bf16 else mm(e32, we, passes)
-    h = ew + xj32 + proj_i.repeat_interleave(k, dim=0) + be
-    a = torch.relu(h).to(dt).float()
-    o = (a @ w2.to(dt).float() if bf16 else mm(a, w2, passes)) + b2
-    xhat, inv = teb._ln_stats(o)
-    g_msg = (g_new.float() + g_agg.float().repeat_interleave(k, dim=0)) * teb._slot_mask(degrees, k)
-    g_xhat = g_msg * lns
-    g_o = inv * (g_xhat - xhat * (g_xhat * xhat).mean(dim=-1, keepdim=True)
-                 - g_xhat.mean(dim=-1, keepdim=True))
-    g_h = torch.where(h > 0, mm(g_o, w2.t(), passes), torch.zeros(()))
-    g_e = (g_new.float() + mm(g_h, we.t(), passes)).to(dt)
-    exact = 2 if bf16 and passes == 3 else passes  # e and a are exactly bf16
-    return (
-        g_e, g_h.to(dt), g_h.reshape(r, k, -1).sum(dim=1).to(dt),
-        mm(e32.t(), g_h, exact), g_h.sum(dim=0),
-        mm(a.t(), g_o, exact), g_o.sum(dim=0),
-        (g_msg * xhat).sum(dim=0), g_msg.sum(dim=0),
-    )
 
 
 def emulation_inputs(rng, r, k, d, bf16):
@@ -254,7 +189,7 @@ def row_and_sum_errors(got, want, sums, dtype):
     return rows, wg
 
 
-@pytest.mark.parametrize("rnd", [tf32, tf32_truncate], ids=["nearest", "truncate"])
+@pytest.mark.parametrize("rnd", [tf32, tf32_truncate, KERNEL_SPLIT], ids=["nearest", "truncate", "kernel"])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_three_pass_tf32_meets_the_card_limits(rng, bf16, rnd):
     r, k, d = 512, 8, 64  # 4,096 edge rows
@@ -293,8 +228,9 @@ def test_tf32_rounding_emulation():
 @pytest.mark.parametrize("name", sorted(ablation.VARIANTS))
 def test_ablation_variants_cut_their_part_from_the_kernel_source(name):
     """The card-side ablation script removes each part by a pattern of the
-    source text: each must still match the kernel as often as it says."""
-    src = ablation.SOURCE.read_text()
+    source text (with the tile header inlined): each must still match the
+    kernel as often as it says."""
+    src = ablation.kernel_source()
     variants = ablation.variant_sources(src)
     assert variants["kernel"] == src
     pattern, count = ablation.VARIANTS[name]
@@ -304,4 +240,4 @@ def test_ablation_variants_cut_their_part_from_the_kernel_source(name):
 
 def test_ablation_refuses_a_source_its_patterns_miss():
     with pytest.raises(ValueError, match="no_tile_loads"):
-        ablation.variant_sources(ablation.SOURCE.read_text().replace("stage_rows<T>(", "stage<T>(", 1))
+        ablation.variant_sources(ablation.kernel_source().replace("stage_rows<T>(", "stage<T>(", 1))

@@ -102,6 +102,23 @@ def test_kernel_sources_and_build_paths():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
+def test_library_name_covers_every_header(monkeypatch, tmp_path):
+    """A source includes the headers of csrc; a header edit must rebuild
+    every source, so the library name hashes the headers too."""
+    assert "edge_block_tile.cuh" in [p.name for p in build.headers()]
+    assert "edge_block_tile" not in build.sources()  # an include, not a source
+    (tmp_path / "k.cu").write_text('#include "t.cuh"\n')
+    (tmp_path / "t.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    (tmp_path / "t.cuh").write_text("// two\n")
+    assert build.library_path("k") != first
+    (tmp_path / "t.cuh").write_text("// one\n")
+    assert build.library_path("k") == first
+    (tmp_path / "u.cuh").write_text("")
+    assert build.library_path("k") != first
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

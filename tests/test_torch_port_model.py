@@ -130,6 +130,32 @@ def test_flat_forward_bf16_matches_jax_kernel(rng, pallas_interpret):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
 
 
+# chip_smoke.BF16_GAP_FACTOR: two bf16 forwards that round at different points
+# each lie about their bf16-vs-f32 gap from the f32 result, so within twice it
+# of each other
+BF16_GAP_FACTOR = 2.0
+
+
+@pytest.mark.parametrize("latent", [32, 64])
+def test_flat_forward_bf16_matches_jax_default_route(rng, latent):
+    """The port's bf16 flat forward against JAX's default route
+    (use_pallas=False, what JAX's train and predict run), which keeps h
+    and msg in bf16 and folds agg into a bf16 product, where the port's
+    kernel keeps h in f32 and rounds agg once. Held within BF16_GAP_FACTOR
+    times that route's own bf16-vs-f32 gap (measured 1.63 and 1.38 of it)."""
+    b, n, k = 2, 32, 8
+    cfg = jepd.EPDConfig(node_in=5, edge_in=3, node_out=3, latent_dim=latent,
+                         num_message_passing_steps=2, num_mlp_layers=1)
+    params = jepd.encode_process_decode_init(jax.random.key(2), cfg)
+    senders, mask, nf, ef = _flat_inputs(rng, b, n, k, cfg)
+    default_bf16 = _jax_flat(params, senders, mask, nf, ef, n, k, False, jnp.bfloat16)
+    default_f32 = _jax_flat(params, senders, mask, nf, ef, n, k, False)
+    got = _port_flat(port_epd(params, cfg), senders, mask, nf, ef, n, k, torch.bfloat16)
+    gap = float(np.abs(default_bf16 - default_f32).max())
+    err = float(np.abs(got - default_bf16).max())
+    assert 0.0 < gap and err <= BF16_GAP_FACTOR * gap, (err, gap)
+
+
 def test_flat_forward_refuses_deeper_edge_mlps():
     cfg = tepd.EPDConfig(node_in=5, edge_in=3, node_out=3, latent_dim=16,
                          num_message_passing_steps=1, num_mlp_layers=2)
