@@ -56,7 +56,18 @@ each of which raises on failure:
      step; the f32 runs' first steps are held against the same rollout
      on the CPU, the bf16 run's first forward against the CPU's within
      twice the CPU's own bf16-vs-f32 gap, and a warm rollout of each is
-     profiled.
+     profiled;
+ 10. multi-scale training: ``train_multi_scale.main`` in train mode at the
+     same values, dense f32 and dense bf16 for 20 steps and COO f32 for 5,
+     each launching the take kernel 2 x (blocks) per step and per
+     validation rollout step, the sorted backward once per block and the
+     planned backward once per dense block per step, exactly; metrics,
+     checkpoint, a profile over 3 warm steps and peak memory. Then one
+     dense f32 and one dense bf16 step at full width on 2 samples against
+     the same step on the CPU (STEP_TOL), and both backward kernels against
+     their plain versions at the model's shapes and at ragged sizes, each
+     launched twice and bit-equal, timed beside the index_add_ route and
+     their bound.
 
 The last lines are the kernel summary (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -149,9 +160,20 @@ BF16_GAP_FACTOR = 2.0
 # rounds one bf16 step (2^-8) apart, and the 5 layers carry that on.
 # Measured on the H100: loss 1.8e-5 relative, gradients 5.2e-4 of their
 # scale (A: 1.1e-7 and 1.5e-5); B's limits are ~10x those.
+# MS_f32 (multi-scale, dense f32, 12 blocks of 3-layer MLPs at width 128):
+# A's limits; its gathers' backwards add in one fixed order on both sides,
+# the products and index_add_'s aggregation sum in another order on the card.
+# MS_bf16: both sides round the edge tensors to bf16 op by op, at the same
+# ops; an f32 sum in another order flips a rounding now and then, and the
+# sums over every edge (the edge MLPs' bias gradients) cancel down to small
+# results, so each gradient's limit is 1e-2 of its scale plus BF16_GAP_FACTOR
+# times the CPU's own bf16-vs-f32 gap in that tensor (the CPU test of the
+# step against JAX takes the same rule: tests/test_torch_port_ms_train.py).
 STEP_TOL = {
     "A": dict(loss_rtol=1e-4, grad_rel=1e-3, param_atol=1e-7, param_rtol=2.0**-22, update_rtol=1e-5),
     "B": dict(loss_rtol=2e-4, grad_rel=5e-3, param_atol=1e-7, param_rtol=2.0**-22, update_rtol=1e-5),
+    "MS_f32": dict(loss_rtol=1e-4, grad_rel=1e-3, param_atol=1e-7, param_rtol=2.0**-22, update_rtol=1e-5),
+    "MS_bf16": dict(loss_rtol=1e-2, grad_rel=1e-2, param_atol=1e-7, param_rtol=2.0**-22, update_rtol=1e-5),
 }
 TRAIN_STEPS, SAVE_EVERY, LOG_EVERY = 20, 10, 10
 PROFILE_STEPS = 3
@@ -173,6 +195,13 @@ MS_MODEL = dict(
 )
 # name: (ms_dense, compute_dtype); "auto" picks the dense layout at this scale
 MS_RUNS = {"dense_f32": ("auto", "float32"), "dense_bf16": ("auto", "bfloat16"), "coo_f32": (False, "float32")}
+# multi-scale training (phase 10): name -> (ms_dense, compute_dtype, steps)
+MS_TRAIN_RUNS = {"dense_f32": ("auto", "float32", TRAIN_STEPS), "dense_bf16": ("auto", "bfloat16", TRAIN_STEPS),
+                 "coo_f32": (False, "float32", 5)}
+# the gathers' backwards against their plain versions: both add in one
+# order from 0 and round once, so they should agree bit for bit; the limits
+# are f32 1e-6 (absolute and relative) and one bf16 step (2^-7 relative)
+BWD_GATHER_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (0.0, 2.0**-7)}  # (atol, rtol)
 
 MODEL = dict(  # the model of both configs
     layers=5,
@@ -606,14 +635,18 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
     return out, cfg, meta["path"]
 
 
-def profile_training(cfg, device, warm=2):
+def profile_training(cfg, device, warm=2, trainer=None):
     """Peak memory of a training step, and device time per step from
     torch.profiler over PROFILE_STEPS warm steps beside the wall time of
-    the same steps unprofiled."""
+    the same steps unprofiled. ``trainer``: the module whose
+    ``build_training`` and ``batch_to_device`` wire the step (default the
+    single-scale ``train.train``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sgnn_tpu_torch.train.train import batch_to_device, build_training
+    if trainer is None:
+        from sgnn_tpu_torch.train import train as trainer
+    build_training, batch_to_device = trainer.build_training, trainer.batch_to_device
 
     built = build_training(cfg, device)
     sim, step_fn = built.sim, built.step_fn
@@ -681,6 +714,46 @@ def fixed_batch_check(cfg, device):
     return losses
 
 
+def compare_steps(where, card, cpu, step_tol, lr, gaps=None):
+    """Loss and metrics, every gradient and every parameter after Adam of
+    one step on the card against the same step on the CPU, to
+    ``step_tol``. ``gaps`` ({param: the CPU's own bf16-vs-f32 gradient
+    gap, its largest entry}) widens each gradient's limit by
+    ``BF16_GAP_FACTOR`` times it. Returns the worst errors."""
+    import torch
+
+    worst = dict(loss_rel=0.0, grad_rel=0.0, param=0.0, param_over_allowed=0.0, sign_flips=0)
+    for k, v in cpu["metrics"].items():
+        rel = abs(card["metrics"][k] - v) / max(abs(v), 1e-30)
+        worst["loss_rel"] = max(worst["loss_rel"], rel)
+        if rel > step_tol["loss_rtol"]:
+            raise AssertionError(f"{where}: {k} {card['metrics'][k]} vs {v}")
+    for k, g_cpu in cpu["grads"].items():
+        g_card = card["grads"][k]
+        tol = step_tol["grad_rel"] * (float(g_cpu.abs().max()) + g_cpu.abs())
+        if gaps is not None:
+            tol = tol + BF16_GAP_FACTOR * gaps[k]
+        err = (g_card - g_cpu).abs()
+        worst["grad_rel"] = max(worst["grad_rel"], float(err.max()) / max(float(g_cpu.abs().max()), 1e-30))
+        if (err > tol).any():
+            raise AssertionError(f"{where}: grad {k} max |err| {float(err.max()):.3e}")
+        p_cpu = cpu["params"][k]
+        perr = (card["params"][k] - p_cpu).abs()
+        g_big = torch.maximum(g_card.abs(), g_cpu.abs()).clamp(min=1e-30)
+        flip = g_card * g_cpu < 0
+        apart = torch.where(flip, 2.0, torch.clamp(err / g_big, max=2.0))
+        allowed = (step_tol["param_atol"] + step_tol["param_rtol"] * p_cpu.abs()
+                   + lr * (step_tol["update_rtol"] + apart))
+        worst["sign_flips"] += int(flip.sum())
+        worst["param"] = max(worst["param"], float(perr.max()))
+        worst["param_over_allowed"] = max(worst["param_over_allowed"], float((perr / allowed).max()))
+        if (perr > allowed).any():
+            raise AssertionError(f"{where}: param {k} max |err| {float(perr.max()):.3e}")
+        if torch.equal(card["params"][k], card["before"][k]):
+            raise AssertionError(f"{where}: param {k} did not move")
+    return worst
+
+
 def card_vs_cpu_step(cfg, name, device):
     """One step of config ``name`` at full width on 2 samples, on the card
     (kernels) and on the CPU (plain versions), from the same weights,
@@ -717,34 +790,7 @@ def card_vs_cpu_step(cfg, name, device):
     if card["sym_bwd"] != sym_expect or cpu["sym_bwd"] != sym_expect:
         raise AssertionError(f"card vs CPU step {name}: sym_gather backward passes "
                              f"{card['sym_bwd']}, {cpu['sym_bwd']}, expected {sym_expect}")
-    lr = cfg.lr_init + 1e-6  # sched(0)
-    worst = dict(loss_rel=0.0, grad_rel=0.0, param=0.0, param_over_allowed=0.0, sign_flips=0)
-    for k, v in cpu["metrics"].items():
-        rel = abs(card["metrics"][k] - v) / max(abs(v), 1e-30)
-        worst["loss_rel"] = max(worst["loss_rel"], rel)
-        if rel > step_tol["loss_rtol"]:
-            raise AssertionError(f"card vs CPU step {name}: {k} {card['metrics'][k]} vs {v}")
-    for k, g_cpu in cpu["grads"].items():
-        g_card = card["grads"][k]
-        tol = step_tol["grad_rel"] * (float(g_cpu.abs().max()) + g_cpu.abs())
-        err = (g_card - g_cpu).abs()
-        worst["grad_rel"] = max(worst["grad_rel"], float(err.max()) / max(float(g_cpu.abs().max()), 1e-30))
-        if (err > tol).any():
-            raise AssertionError(f"card vs CPU step {name}: grad {k} max |err| {float(err.max()):.3e}")
-        p_cpu = cpu["params"][k]
-        perr = (card["params"][k] - p_cpu).abs()
-        g_big = torch.maximum(g_card.abs(), g_cpu.abs()).clamp(min=1e-30)
-        flip = g_card * g_cpu < 0
-        apart = torch.where(flip, 2.0, torch.clamp(err / g_big, max=2.0))
-        allowed = (step_tol["param_atol"] + step_tol["param_rtol"] * p_cpu.abs()
-                   + lr * (step_tol["update_rtol"] + apart))
-        worst["sign_flips"] += int(flip.sum())
-        worst["param"] = max(worst["param"], float(perr.max()))
-        worst["param_over_allowed"] = max(worst["param_over_allowed"], float((perr / allowed).max()))
-        if (perr > allowed).any():
-            raise AssertionError(f"card vs CPU step {name}: param {k} max |err| {float(perr.max()):.3e}")
-        if torch.equal(card["params"][k], card["before"][k]):
-            raise AssertionError(f"card vs CPU step {name}: param {k} did not move")
+    worst = compare_steps(f"card vs CPU step {name}", card, cpu, step_tol, cfg.lr_init + 1e-6)  # lr = sched(0)
     out = dict(config=name, compute_dtype=cfg.compute_dtype, samples=2,
                receivers=int(np.prod(batch["node_mask"].shape)), sym_gather_backward=card["sym_bwd"],
                loss=card["metrics"]["train/loss"], max_err=worst, tol=step_tol,
@@ -1216,6 +1262,327 @@ def ms_bf16_forward_check(name, gpu_sim, sim_cfg, state, metadata, noise_std, tr
                 output_max_abs=scale)
 
 
+def reset_bwd_gather_launches():
+    from sgnn_tpu_torch.ops import row_gather as rg
+
+    for v in rg.BWD_LAUNCHES:
+        rg.BWD_LAUNCHES[v] = 0
+
+
+def ms_train_config(root: Path, data: Path, name: str, **kw):
+    ms_dense, dtype_name, steps = MS_TRAIN_RUNS[name]
+    base = dict(mode="train", model_path=str(root / "ms_train_models"), output_path=str(root / "ms_train_rollouts"),
+                run_name=f"smoke_ms_train_{name}", ms_dense=ms_dense, compute_dtype=dtype_name,
+                ntraining_steps=steps, nsave_steps=min(SAVE_EVERY, steps), log_every=min(LOG_EVERY, steps))
+    return ms_config(data, **{**base, **kw})
+
+
+def ms_blocks(graph) -> int:
+    """Interaction blocks of one forward over ``graph``'s layout: G2M, M2G,
+    and M2M per layer (and per scale in the dense layout)."""
+    from sgnn_tpu_torch.physics.multi_scale_graph import DenseStaticGraph
+
+    per_layer = len(graph.m2m) if isinstance(graph, DenseStaticGraph) else 1
+    return 2 + MS_MODEL["layers"] * per_layer
+
+
+def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
+    """``train_multi_scale.main`` in train mode at the values of
+    configs/taylor2d_multi_scale.yaml for run ``name``: launches of the
+    take kernel and of both backward kernels against the counts the graph
+    asks (per step: 2 gathers per block, one sorted backward per block and
+    one planned backward per dense block; 2 gathers per block per
+    validation rollout step), metrics, checkpoint, and a profile with the
+    step's peak memory (validation resets the run's own peak)."""
+    import torch
+
+    from sgnn_tpu_torch.data.loader import load_metadata
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.physics.multi_scale_graph import DenseStaticGraph
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+
+    cfg = ms_train_config(root, data, name)
+    keys = sorted(set(MS_MODEL) | {"data_path", "model_path", "output_path", "run_name", "ms_dense", "compute_dtype",
+                                   "ntraining_steps", "nsave_steps", "log_every", "mode"})
+    yml = root / f"ms_train_{name}.yaml"
+    yml.write_text("".join(f"{k}: {json.dumps(getattr(cfg, k))}\n" for k in keys))
+    steps, n_val = cfg.ntraining_steps, cfg.ntraining_steps // cfg.nsave_steps
+    card = torch.device("cuda", torch.cuda.current_device())
+
+    torch.cuda.synchronize()
+    reset_gather_launches()
+    reset_bwd_gather_launches()
+    t0 = time.perf_counter()
+    result = tms.main(["--config", str(yml), "--mode", "train"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = dict(rg.LAUNCHES, **{f"bwd_{k}": v for k, v in rg.BWD_LAUNCHES.items()})
+
+    # the counts the graphs ask: the training split's batcher and the validation loader
+    sim_cfg = tms.ms_config_from(cfg, load_metadata(data))
+    valid = tms.make_loader(cfg, sim_cfg, "valid")
+    built = tms.build_training(cfg, card)
+    train_graph = built.batcher.graphs[0]
+    del built
+    dense = isinstance(train_graph, DenseStaticGraph)
+    if dense != name.startswith("dense") or isinstance(valid.graphs[0], DenseStaticGraph) != dense:
+        raise AssertionError(f"ms train {name}: ms_dense={cfg.ms_dense} gave the "
+                             f"{'dense' if dense else 'COO'} layout")
+    blocks, val_blocks = ms_blocks(train_graph), ms_blocks(valid.graphs[0])
+    val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
+    expect = {v: 0 for v in rg.VARIANTS}
+    expect[rg.MODEL_VARIANT] = 2 * blocks * steps + 2 * val_blocks * val_steps * n_val
+    expect.update(bwd_sorted=blocks * steps, bwd_planned=blocks * steps if dense else 0)
+    if got != expect:
+        raise AssertionError(f"ms train {name}: launches {got}, expected {expect}")
+    if result["step"] != steps or not math.isfinite(result["lowest_eval_loss"]):
+        raise AssertionError(f"ms train {name}: {result}")
+    run_dir = Path(cfg.model_path) / cfg.run_name
+    meta = json.loads((run_dir / "checkpoint_meta.json").read_text())
+    if not meta["path"].startswith("model-best-") or not (run_dir / meta["path"]).exists():
+        raise AssertionError(f"ms train {name}: no best checkpoint ({meta})")
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_rec = [r for r in records if "train/loss" in r]
+    val_rec = [r for r in records if "val/loss" in r]
+    log_steps = list(range(cfg.log_every, steps + 1, cfg.log_every))
+    if [r["step"] for r in train_rec] != log_steps or len(val_rec) != n_val:
+        raise AssertionError(f"ms train {name}: metrics {records}")
+    for r in records:
+        if not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"ms train {name}: non-finite metric in {r}")
+
+    out = dict(
+        run=name, layout="dense" if dense else "coo", compute_dtype=cfg.compute_dtype, batch_size=cfg.batch_size,
+        blocks=blocks, steps=steps, validation_rollout_steps=val_steps * n_val, launches=got,
+        expected_launches=expect, ms_per_step_last_log=train_rec[-1]["train/step_time_s"] * 1e3,
+        logged_steps=log_steps, train_loss=[r["train/loss"] for r in train_rec],
+        val_loss=[r["val/loss"] for r in val_rec], checkpoint=meta["path"], wall_s=wall_s, device=kind,
+        nvidia_smi=smi,
+    )
+    out["profile"] = profile_training(cfg, card, trainer=tms)
+    log(f"ms train {name} " + json.dumps(out))
+    return out
+
+
+def ms_card_vs_cpu_step(root: Path, data: Path, name: str, device):
+    """One multi-scale training step of run ``name`` at full width on 2
+    samples, on the card (kernels) and on the CPU (plain versions), from
+    the same weights, batch and noise; held to STEP_TOL (bf16: with the
+    CPU's own bf16-vs-f32 gap, from the same step in f32 on the CPU)."""
+    import dataclasses
+
+    import torch
+
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+
+    cfg = ms_train_config(root, data, name, run_name=f"smoke_ms_checks_{name}")
+    bf16 = cfg.compute_dtype == "bfloat16"
+    step_tol = STEP_TOL["MS_bf16" if bf16 else "MS_f32"]
+    cpu = torch.device("cpu")
+    # the card's step twice: whether the whole step's gradients repeat bit
+    # for bit is reported, not held (the gathers' backwards are; the rest
+    # is PyTorch's)
+    plan = [("card", device, cfg), ("card_again", device, cfg), ("cpu", cpu, cfg)]
+    if bf16:
+        plan.append(("cpu_f32", cpu, dataclasses.replace(cfg, compute_dtype="float32")))
+    runs, batch = {}, None
+    for where, dev, c in plan:
+        built = tms.build_training(c, dev, batch_size=2)
+        if batch is None:
+            batch = next(built.batcher.epochs())
+            noise = random_walk_position_noise(tuple(batch["positions"].shape), cfg.noise_std,
+                                               generator=torch.Generator().manual_seed(2))
+            blocks = ms_blocks(built.batcher.graphs[0])
+        before = {k: v.detach().cpu().clone() for k, v in built.sim.state_dict().items()}
+        launches = dict(rg.BWD_LAUNCHES)
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in built.step_fn(tms.batch_to_device(batch, dev), 0,
+                                                          noise=noise.to(dev)).items()}
+        runs[where] = dict(metrics=metrics, seconds=time.perf_counter() - t0,
+                           bwd={k: rg.BWD_LAUNCHES[k] - launches[k] for k in launches},
+                           grads={k: p.grad.detach().cpu() for k, p in built.sim.named_parameters()},
+                           params={k: v.detach().cpu() for k, v in built.sim.state_dict().items()}, before=before)
+        del built
+    card, on_cpu = runs["card"], runs["cpu"]
+    if card["bwd"] != {"sorted": blocks, "planned": blocks} or on_cpu["bwd"] != {"sorted": 0, "planned": 0}:
+        raise AssertionError(f"ms card vs CPU step {name}: backward launches {card['bwd']} (card), "
+                             f"{on_cpu['bwd']} (CPU), expected {blocks} of each on the card")
+    gaps = None
+    if bf16:
+        gaps = {k: float((g - runs["cpu_f32"]["grads"][k]).abs().max()) for k, g in on_cpu["grads"].items()}
+    worst = compare_steps(f"ms card vs CPU step {name}", card, on_cpu, step_tol, cfg.lr_init + 1e-6, gaps)
+    repeats = all(torch.equal(g, runs["card_again"]["grads"][k]) for k, g in card["grads"].items())
+    out = dict(run=name, compute_dtype=cfg.compute_dtype, samples=2, receivers=int(batch["node_mask"].size),
+               backward_launches=card["bwd"], loss=card["metrics"]["train/loss"], max_err=worst, tol=step_tol,
+               card_gradients_repeat_bitwise=repeats,
+               gap_factor=BF16_GAP_FACTOR if bf16 else None, card_s=card["seconds"], cpu_s=on_cpu["seconds"])
+    log("ms card vs CPU step " + json.dumps(out))
+    return out
+
+
+def _bwd_gather_cases(data: Path, dev):
+    """The backwards' inputs at the model's shapes, from one flattened
+    dense training batch of 16 (f32 and bf16 cotangents), and at ragged
+    sizes: {case: (kind, args)}; kind is "sorted" or "planned"."""
+    import numpy as np
+    import torch
+
+    from sgnn_tpu_torch.data.loader import load_metadata
+    from sgnn_tpu_torch.data.static_graph_loader import MultiScaleSampleBatcher
+    from sgnn_tpu_torch.models.multi_scale import flatten_dense_ms_graph
+    from sgnn_tpu_torch.physics.multi_scale_graph import CooEdges, dense_edges
+    from sgnn_tpu_torch.physics.multi_scale_simulator import graph_to
+    from sgnn_tpu_torch.train.train_multi_scale import ms_config_from
+
+    cfg = ms_config(data, ms_dense=True)
+    sim_cfg = ms_config_from(cfg, load_metadata(data))
+    batcher = MultiScaleSampleBatcher(
+        data / "train.npz", cfg.input_sequence_length, cfg.batch_size, ms_cfg=sim_cfg.graph_config,
+        pad_multiple=cfg.pad_multiple, edge_pad_multiple=cfg.edge_pad_multiple, seed=cfg.seed, dense=True,
+        m2m_traversals=cfg.layers)
+    n = cfg.batch_size * batcher.num_nodes
+    graph = flatten_dense_ms_graph(graph_to(next(batcher.epochs())["graph"], dev), batcher.num_nodes)
+    g = torch.Generator().manual_seed(13)
+    cases = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for edge_type, de in (("m2m", graph.m2m[0]), ("m2g", graph.m2g)):
+            m = de.recv.numel()
+            cot = torch.randn(m, cfg.hidden_dim, generator=g).to(dtype).to(dev)
+            cases[f"{edge_type}_recv_{name}"] = ("sorted", (cot, de.recv, n))
+            cot = torch.randn(de.senders.numel(), cfg.hidden_dim, generator=g).to(dtype).to(dev)
+            cases[f"{edge_type}_plan_{name}"] = ("planned", (cot, de.tsp_rows, de.tsp_node, de.tsp_mask, n))
+    rng = np.random.default_rng(17)
+    for name, dtype, width in (("float32", torch.float32, 4), ("bfloat16", torch.bfloat16, 8)):
+        ids = torch.sort(torch.randint(0, 90, (1001,), generator=g)).values  # runs, gaps, rows 90-96 empty
+        cot = torch.randn(1001, width, generator=g).to(dtype).to(dev)
+        cases[f"ragged_recv_{name}"] = ("sorted", (cot, ids.to(dev), 97))
+        de = dense_edges(CooEdges(rng.integers(0, 301, 3000).astype(np.int32),
+                                  rng.integers(0, 301, 3000).astype(np.int32)), 301, 310, 24, tsp_slots=40,
+                         tsp_rows_pad=320)  # plan slots past one warp's 32; padded plan rows
+        cot = torch.randn(de.senders.size, width, generator=g).to(dtype).to(dev)
+        cases[f"ragged_plan_{name}"] = ("planned", (cot, *(torch.from_numpy(a).to(dev) for a in
+                                                           (de.tsp_rows, de.tsp_node, de.tsp_mask)), 301))
+    return cases
+
+
+def bwd_gather_bound(kind, args):
+    """Least time of the backward on the card: the bytes it must move (the
+    cotangent rows its ids name, once: all of them for the sorted sum, the
+    unmasked slots' for the plan; the ids or the whole plan; the [N, W]
+    output) over HBM rate, against its f32 adds over the f32 peak."""
+    g, n = args[0], args[-1]
+    row = g.shape[1] * g.element_size()
+    if kind == "sorted":
+        idx = args[1]
+        rows = g.shape[0]
+        n_bytes = rows * row + idx.numel() * idx.element_size() + n * row
+    else:
+        tsp_rows, tsp_node, tsp_mask = args[1:4]
+        rows = int(tsp_mask.sum())
+        n_bytes = (rows * row + tsp_rows.numel() * tsp_rows.element_size() + tsp_node.numel() * tsp_node.element_size()
+                   + tsp_mask.numel() + n * row)
+    flops = rows * g.shape[1]
+    ms, by = _bound(n_bytes, flops, "float32")
+    return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, flops=flops, cotangent_rows_read=rows)
+
+
+def phase_row_gather_bwd(data: Path, dev):
+    """Both backward kernels against their plain versions at the model's
+    shapes (f32, bf16) and at ragged sizes, each launched twice and held
+    to bit-equal repeats; then timed (CUDA-graph replay of
+    GATHER_TIMING_ITERS calls) beside their plain versions (host loop),
+    the index_add_ route and the bound."""
+    import torch
+
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.scripts.gather_kernel_probe import time_ms as graph_time_ms
+
+    fns = {"sorted": (rg.sorted_segment_sum, rg.sorted_segment_sum_reference),
+           "planned": (rg.planned_gather_bwd, rg.planned_gather_bwd_reference)}
+    cases = _bwd_gather_cases(data, dev)
+    worst = {"sorted": 0.0, "planned": 0.0}
+    bit_equal = {"sorted": True, "planned": True}
+    for case, (kind, args) in cases.items():
+        kern, plain = fns[kind]
+        got, again = kern(*args), kern(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{kind} backward {case}: two launches differ")
+        atol, rtol = BWD_GATHER_TOL[str(got.dtype)[6:]]
+        err = (got.float() - want.float()).abs()
+        if got.shape != want.shape or got.dtype != want.dtype or (err > atol + rtol * want.float().abs()).any():
+            raise AssertionError(f"{kind} backward {case}: max |err| {float(err.max()):.3e} beyond atol {atol} "
+                                 f"+ rtol {rtol}")
+        worst[kind] = max(worst[kind], float(err.max()))
+        bit_equal[kind] &= bool(torch.equal(got, want))
+        log(f"kernel {kind} backward {case}: g {list(args[0].shape)} {str(args[0].dtype)[6:]} -> "
+            f"[{args[-1]}, {args[0].shape[1]}]: ok, bit-identical twice, max |err| vs plain {float(err.max()):.3e}, "
+            f"bit-identical to plain: {torch.equal(got, want)}")
+
+    def library(kind, args):
+        """index_add_ of the cotangent rows at their ids (the plan's
+        unmasked slots gathered first)."""
+        g, n = args[0], args[-1]
+        if kind == "sorted":
+            return lambda: torch.zeros((n, g.shape[1]), dtype=g.dtype, device=g.device).index_add_(0, args[1], g)
+        tsp_rows, tsp_node, tsp_mask = args[1:4]
+        rows, idx = tsp_rows[tsp_mask], tsp_node[:, None].expand_as(tsp_rows)[tsp_mask]
+        return lambda: torch.zeros((n, g.shape[1]), dtype=g.dtype, device=g.device).index_add_(
+            0, idx, g.index_select(0, rows))
+
+    timed = {}
+    for case in ("m2m_recv_float32", "m2g_recv_float32", "m2m_plan_float32", "m2g_plan_float32",
+                 "m2m_plan_bfloat16", "m2g_plan_bfloat16"):
+        kind, args = cases[case]
+        kern, plain = fns[kind]
+        t_plain_a = time_ms(lambda: plain(*args), [()], iters=20, warmup=3)
+        t_kern = [graph_time_ms(lambda: kern(*args), GATHER_TIMING_ITERS, dev) for _ in range(2)]
+        t_plain_b = time_ms(lambda: plain(*args), [()], iters=20, warmup=3)
+        lib_ms = graph_time_ms(library(kind, args), GATHER_TIMING_ITERS, dev)
+        timed[case] = dict(
+            bwd_gather_bound(kind, args), kind=kind, ms=sum(t_kern) / 2, kernel_ms_runs=t_kern,
+            plain_ms=(t_plain_a + t_plain_b) / 2, plain_ms_runs=[t_plain_a, t_plain_b], library_ms=lib_ms,
+            host_loop_ms=time_ms(lambda: kern(*args), [()], iters=GATHER_TIMING_ITERS),
+            shape=[list(args[0].shape), args[-1]], dtype=str(args[0].dtype)[6:],
+        )
+        r = timed[case]
+        log(f"time {kind} backward {case}: kernel {r['ms'] * 1e3:.2f} us (graph replay; host loop "
+            f"{r['host_loop_ms'] * 1e3:.2f} us), plain {r['plain_ms'] * 1e3:.2f} us, index_add_ route "
+            f"{lib_ms * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.3f} of the kernel's time)")
+    return dict(max_abs_err=worst, bit_identical_to_plain=bit_equal, checked=sorted(cases), timed=timed,
+                tol={k: {"atol": a, "rtol": r} for k, (a, r) in BWD_GATHER_TOL.items()})
+
+
+def bwd_gather_summary(bwd, ms_train):
+    """The kernel-summary entries of the two backward kernels: times at the
+    dense f32 m2m gathers (the training step's), launches by path."""
+    entries = []
+    for kind, name, case, replaces in (
+        ("sorted", "sorted_segment_sum", "m2m_recv_float32", "sgnn_tpu/models/multi_scale.py:243"),
+        ("planned", "planned_gather_bwd", "m2m_plan_float32", "sgnn_tpu/models/multi_scale.py:266"),
+    ):
+        main = bwd["timed"][case]
+        by_path = {f"ms_train_{n}": r["launches"][f"bwd_{kind}"] for n, r in ms_train.items()}
+        entries.append(dict(
+            name=name, route="cuda", source="sgnn_tpu_torch/csrc/row_gather_bwd.cu",
+            replaces=f"{replaces} (a custom VJP's XLA backward; no Pallas original)",
+            launches=by_path["ms_train_dense_f32"], launches_by_path=by_path, dtype=main["dtype"], shape=main["shape"],
+            max_abs_err=bwd["max_abs_err"][kind], bit_identical_to_plain=bwd["bit_identical_to_plain"][kind],
+            tol=bwd["tol"], checked=bwd["checked"], ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=main["library_ms"], bytes=main["bytes"],
+            kernel_ms_runs=main["kernel_ms_runs"], plain_ms_runs=main["plain_ms_runs"],
+            host_loop_ms=main["host_loop_ms"],
+            at_shapes={c: {k: r[k] for k in ("shape", "dtype", "ms", "plain_ms", "bound_ms", "library_ms",
+                                             "host_loop_ms")}
+                       for c, r in bwd["timed"].items() if r["kind"] == kind},
+        ))
+    return entries
+
+
 def gather_summary(gather, probe, ms_runs):
     """The kernel-summary entries of the three row-gather kernels: times
     at the dense m2m sender gather (f32), the main path's, and at every
@@ -1326,6 +1693,21 @@ def main() -> int:
         for name in MS_RUNS:
             ms_runs[name] = run_ms(root, data, name, ms_ckpt, smi, kind)
             torch.cuda.empty_cache()
+        log(f"phases 1-9: {time.perf_counter() - t_start:.1f} s")
+
+        # 10. multi-scale training, through train_multi_scale.main; the
+        # gathers' backward kernels against their plain versions, then timed
+        ms_train = {}
+        for name in MS_TRAIN_RUNS:
+            ms_train[name] = run_ms_train(root, data, name, smi, kind)
+            torch.cuda.empty_cache()
+        ms_step_checks = {}
+        for name in ("dense_f32", "dense_bf16"):
+            ms_step_checks[name] = ms_card_vs_cpu_step(root, data, name, card)
+            torch.cuda.empty_cache()
+        bwd_gather = phase_row_gather_bwd(data, card)
+        torch.cuda.empty_cache()
+        log(f"phase 10: {time.perf_counter() - t_start:.1f} s in all")
 
     by_dtype = {trained[n][0]["compute_dtype"]: trained[n][0] for n in CONFIGS}
     kernels = []
@@ -1358,9 +1740,11 @@ def main() -> int:
                                              ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
             kernels.append(entry)
     kernels.extend(gather_summary(gather, probe, ms_runs))
+    kernels.extend(bwd_gather_summary(bwd_gather, ms_train))
     log("library " + json.dumps({"index_select": kernel_results["index_select"],
                                  "fixed_batch_losses": fixed, "card_vs_cpu_step": step_checks,
                                  "sym_gather_backward_check": sym_check,
+                                 "ms_card_vs_cpu_step": ms_step_checks,
                                  "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,11 +1,11 @@
 """Multi-scale data loading: one static graph per trajectory.
 
-The port's own copy of ``_build_graphs`` and ``MultiScaleTrajectoryLoader``
-of ``sgnn_tpu/data/static_graph_loader.py``. Each trajectory's hierarchy
-is built once from its frame-0 positions; all graphs of a split pad to
-the split-wide maximum per edge type, so they share one shape. Plain
-numpy; the batched training loader comes with multi-scale training
-(ROADMAP.md, Queue A item 5b).
+The port's own copy of ``_build_graphs``, ``_stack_graphs``,
+``MultiScaleSampleBatcher`` and ``MultiScaleTrajectoryLoader`` of
+``sgnn_tpu/data/static_graph_loader.py``. Each trajectory's hierarchy is
+built once from its frame-0 positions; all graphs of a split pad to the
+split-wide maximum per edge type, so they share one shape, and a training
+batch stacks each sample's own graph on a leading axis. Plain numpy.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import List
 
 import numpy as np
 
-from sgnn_tpu_torch.data.loader import TrajectoryLoader, _round_up
+from sgnn_tpu_torch.data.loader import SampleBatcher, TrajectoryLoader, _round_up
 from sgnn_tpu_torch.physics.multi_scale_graph import (
     DenseStaticGraph,
     MultiScaleConfig,
@@ -104,6 +104,69 @@ def _build_graphs(
         )
         for r in raw
     ]
+
+
+def _stack_graphs(graphs):
+    """Stack a list of StaticGraphs (or DenseStaticGraphs) along a new
+    leading batch axis, field by field."""
+    head = graphs[0]
+    if isinstance(head, np.ndarray):
+        return np.stack(graphs)
+    parts = [_stack_graphs(list(items)) for items in zip(*graphs)]
+    return type(head)(*parts) if hasattr(head, "_fields") else tuple(parts)
+
+
+def check_sorted_ids(graph, num_nodes: int) -> None:
+    """Raise unless a batched graph ([B, ...] leaves) keeps every id the
+    sorted backward kernels search ascending once the batch is flattened:
+    per sample, in ``[0, num_nodes)`` and non-decreasing (dense ``recv`` and
+    ``tsp_node``; COO receivers with padding at the last node, as
+    ``flatten_ms_graph`` re-points it)."""
+    if isinstance(graph, DenseStaticGraph):
+        named = [(f"{t}.{f}", getattr(de, f)) for t, de in (("g2m", graph.g2m), ("m2g", graph.m2g),
+                                                          *((f"m2m[{i}]", de) for i, de in enumerate(graph.m2m)))
+                 for f in ("recv", "tsp_node")]
+    else:
+        named = [(f"{t}.receivers", np.where(pe.mask, pe.receivers, num_nodes - 1))
+                 for t, pe in (("g2m", graph.g2m), ("m2m", graph.m2m), ("m2g", graph.m2g))]
+    for name, ids in named:
+        if ids.size and (ids.min() < 0 or ids.max() >= num_nodes or (np.diff(ids, axis=-1) < 0).any()):
+            raise ValueError(f"{name}: ids must lie in [0, {num_nodes}) and be non-decreasing per sample")
+
+
+class MultiScaleSampleBatcher(SampleBatcher):
+    """SampleBatcher that attaches each sample's trajectory static graph,
+    stacked over the batch (``batch["graph"]``), and checks on the host
+    that its ids stay ascending once flattened (``check_sorted_ids``)."""
+
+    def __init__(
+        self,
+        path: str | Path,
+        input_sequence_length: int,
+        batch_size: int,
+        *,
+        ms_cfg: MultiScaleConfig,
+        pad_multiple: int = 128,
+        edge_pad_multiple: int = 1024,
+        seed: int = 0,
+        drop_remainder: bool = True,
+        dense: bool | str = False,
+        m2m_traversals: int = 6,
+        dense_row_advantage: float = 2.0,
+    ):
+        super().__init__(path, input_sequence_length, batch_size, pad_multiple=pad_multiple, seed=seed,
+                         drop_remainder=drop_remainder)
+        self.graphs = _build_graphs(
+            self.trajectories, ms_cfg, edge_pad_multiple,
+            dense=dense, num_nodes=self.num_nodes,
+            m2m_traversals=m2m_traversals, dense_row_advantage=dense_row_advantage,
+        )
+
+    def _gather(self, idxs: np.ndarray):
+        batch = super()._gather(idxs)
+        batch["graph"] = _stack_graphs([self.graphs[self.samples[i][0]] for i in idxs])
+        check_sorted_ids(batch["graph"], self.num_nodes)
+        return batch
 
 
 class MultiScaleTrajectoryLoader(TrajectoryLoader):

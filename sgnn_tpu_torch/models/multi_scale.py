@@ -1,10 +1,11 @@
 """Multi-scale GNN: grid encoder + G2M -> M x M2M -> M2G interaction blocks.
 
-Port of ``sgnn_tpu/models/multi_scale.py`` (serving): ``MSGNNConfig``,
-the parameter module ``MultiScaleGNN``, the COO forward
-(``_interact``, ``multi_scale_gnn_apply``) and the dense-slot forward
-(``_interact_dense``, ``_interact_dense_scales``,
-``multi_scale_gnn_apply_dense``).
+Port of ``sgnn_tpu/models/multi_scale.py``: ``MSGNNConfig``, the
+parameter module ``MultiScaleGNN``, the COO forward (``_interact``,
+``multi_scale_gnn_apply``), the dense-slot forward (``_interact_dense``,
+``_interact_dense_scales``, ``multi_scale_gnn_apply_dense``) and the
+batch flattening of both layouts (``flatten_ms_graph``,
+``flatten_dense_ms_graph``).
 
 Node state is one full-grid ``[N, D]`` tensor at every stage; the mesh
 scales exist only as edge lists over global grid indices. G2M, M2M and
@@ -13,13 +14,19 @@ lists: ``msg = edge_fn([x_receiver, x_sender, e])``, sum at receivers,
 ``upd = node_fn([agg, x])``, residuals on nodes and edges; the node
 update runs on ALL N nodes. The first Linear of ``edge_fn`` is applied in
 split form, so the receiver and sender projections are ``[N, H]`` node
-products whose rows are gathered per edge: those latent-row gathers go
-through ``ops/row_gather.row_gather`` (the kernel).
+products whose rows are gathered per edge. Every latent-row gather is
+the row-gather kernel, inside the autograd Functions of
+``ops/row_gather``, as JAX's custom VJPs:
+
+  * receivers (ascending): ``sorted_gather``, backward the sorted segment
+    sum kernel; the COO layout's receivers are ascending only once a batch
+    is flattened (``sorted_receivers=True``), else ``indexed_gather``;
+  * dense senders: ``planned_gather``, backward the transpose plan's kernel;
+  * COO senders: ``indexed_gather``, backward ``index_add_`` (JAX's plain
+    gather transposes to XLA's unsorted scatter there).
 
 ``compute_dtype`` (bf16) lowers the edge-sized tensors; aggregation,
 LayerNorm moments, node updates and the prediction head stay f32.
-Forward only: the gathers' backwards come with multi-scale training
-(ROADMAP.md, Queue A item 5b).
 """
 
 from __future__ import annotations
@@ -37,8 +44,9 @@ from sgnn_tpu_torch.models.encode_process_decode import (
     split_first_layer,
 )
 from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
-from sgnn_tpu_torch.ops.row_gather import row_gather
+from sgnn_tpu_torch.ops.row_gather import indexed_gather, planned_gather, sorted_gather
 from sgnn_tpu_torch.ops.segment import coo_segment_sum, segment_sum
+from sgnn_tpu_torch.physics.multi_scale_graph import DenseEdges, DenseStaticGraph, PaddedEdges, StaticGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +127,13 @@ def _agg_weight(block: InteractionNetwork, d: int) -> torch.Tensor:
     return w_agg
 
 
-def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges, compute_dtype=None):
+def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges, compute_dtype=None,
+              sorted_receivers: bool = False):
     """One interaction step over padded COO edges (``PaddedEdges`` of
     tensors): padded slots (mask False) add nothing to the aggregation and
-    their latents stay zero. Returns (new x [N, D], new e [E, D])."""
+    their latents stay zero. ``sorted_receivers`` asserts the receivers
+    are non-decreasing, padding included (``flatten_ms_graph``'s
+    contract). Returns (new x [N, D], new e [E, D])."""
     d, n = x.shape[-1], x.shape[0]
     dt = e.dtype if compute_dtype is None else compute_dtype
     maskf = edges.mask[:, None].to(dt)
@@ -131,7 +142,8 @@ def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges
     proj_j = x @ w_j
     if compute_dtype is not None:
         proj_j = proj_j.to(dt)
-    h = row_gather(proj_i, edges.receivers).to(dt) + row_gather(proj_j, edges.senders) + e @ w_e + b_e
+    gather_i = sorted_gather if sorted_receivers else indexed_gather
+    h = gather_i(proj_i, edges.receivers, n).to(dt) + indexed_gather(proj_j, edges.senders, n) + e @ w_e + b_e
     msg = _edge_msg(block, h, maskf)
     agg = coo_segment_sum(msg.float(), edges.receivers, n)  # f32 accumulation
     return _node_update(block, x, agg @ _agg_weight(block, d)), (e + msg) * maskf
@@ -148,16 +160,18 @@ def multi_scale_gnn_apply(
     edge_features: Dict[str, torch.Tensor],  # {'g2m','m2m','m2g'}: [E_pad, edge_in]
     graph,  # StaticGraph of tensors
     compute_dtype: Optional[torch.dtype] = None,
+    sorted_receivers: bool = False,
 ) -> torch.Tensor:
-    """COO forward; returns [N, node_out]."""
+    """COO forward; returns [N, node_out]. ``sorted_receivers``: every
+    receiver list is non-decreasing, padding included (a flattened batch)."""
     x = mlp_ln_apply(gnn.grid_node_encoder, node_features)
     e_g2m = _encode_edges(gnn, "g2m_edge_encoder", edge_features["g2m"], graph.g2m.mask, compute_dtype)
     e_m2m = _encode_edges(gnn, "m2m_edge_encoder", edge_features["m2m"], graph.m2m.mask, compute_dtype)
     e_m2g = _encode_edges(gnn, "m2g_edge_encoder", edge_features["m2g"], graph.m2g.mask, compute_dtype)
-    x, _ = _interact(gnn.g2m_block, x, e_g2m, graph.g2m, compute_dtype)
+    x, _ = _interact(gnn.g2m_block, x, e_g2m, graph.g2m, compute_dtype, sorted_receivers)
     for block in gnn.m2m_blocks:
-        x, e_m2m = _interact(block, x, e_m2m, graph.m2m, compute_dtype)
-    x, _ = _interact(gnn.m2g_block, x, e_m2g, graph.m2g, compute_dtype)
+        x, e_m2m = _interact(block, x, e_m2m, graph.m2m, compute_dtype, sorted_receivers)
+    x, _ = _interact(gnn.m2g_block, x, e_m2g, graph.m2g, compute_dtype, sorted_receivers)
     return gnn.prediction_head(x)
 
 
@@ -187,8 +201,8 @@ def _interact_dense_scales(
     new_es = []
     for e, de in zip(es, des):
         maskf = de.mask[..., None].to(dt)
-        proj_i = row_gather(proj_i_full, de.recv)  # [R, H]
-        xj = row_gather(proj_j, de.senders)  # [R, K, H]
+        proj_i = sorted_gather(proj_i_full, de.recv, n)  # [R, H]
+        xj = planned_gather(proj_j, de.senders, de.tsp_rows, de.tsp_node, de.tsp_mask, n)  # [R, K, H]
         h = proj_i.to(dt)[:, None, :] + xj + e @ w_e + b_e
         msg = _edge_msg(block, h, maskf)
         new_es.append((e + msg) * maskf)
@@ -225,3 +239,47 @@ def multi_scale_gnn_apply_dense(
         x, e_m2m = _interact_dense_scales(block, x, e_m2m, graph.m2m, compute_dtype)
     x, _ = _interact_dense(gnn.m2g_block, x, e_m2g, graph.m2g, compute_dtype)
     return gnn.prediction_head(x)
+
+
+def flatten_dense_ms_graph(graph: DenseStaticGraph, n: int) -> DenseStaticGraph:
+    """A batched DenseStaticGraph of tensors ([B, R, ...] leaves) as ONE
+    flat block-diagonal graph over B*n nodes: graph b's node i becomes
+    b*n + i, and its transpose plan's edge positions move by b*R*K (the
+    JAX ``flatten_dense_ms_graph``). Padded rows already hold their graph's
+    last node, so ``recv`` and ``tsp_node`` stay ascending."""
+
+    def flat(de):
+        b, r = de.recv.shape
+        k = de.senders.shape[-1]
+        rs = de.tsp_node.shape[1]
+        off = (torch.arange(b, dtype=de.recv.dtype, device=de.recv.device) * n)[:, None]
+        eoff = (torch.arange(b, dtype=de.tsp_rows.dtype, device=de.tsp_rows.device) * (r * k))[:, None, None]
+        return DenseEdges(
+            recv=(de.recv + off).reshape(-1),
+            senders=(de.senders + off[..., None]).reshape(b * r, -1),
+            mask=de.mask.reshape(b * r, -1),
+            tsp_rows=(de.tsp_rows + eoff).reshape(b * rs, -1),
+            tsp_node=(de.tsp_node + off).reshape(-1),
+            tsp_mask=de.tsp_mask.reshape(b * rs, -1),
+        )
+
+    return DenseStaticGraph(g2m=flat(graph.g2m), m2m=tuple(flat(de) for de in graph.m2m), m2g=flat(graph.m2g))
+
+
+def flatten_ms_graph(graph: StaticGraph, n: int) -> StaticGraph:
+    """A batched StaticGraph of tensors ([B, E_pad] leaves) as ONE flat
+    block-diagonal COO graph over B*n nodes (the JAX ``flatten_ms_graph``).
+    Padded slots are re-pointed at their graph's last node ((b+1)*n - 1;
+    their messages are masked), which keeps the receivers globally
+    non-decreasing: valid edges are receiver-sorted per graph
+    (``pad_edges``) and graph b+1 starts above graph b's last node."""
+
+    def flat(pe):
+        b = pe.senders.shape[0]
+        off = (torch.arange(b, dtype=pe.senders.dtype, device=pe.senders.device) * n)[:, None]
+        last = off + (n - 1)
+        s = torch.where(pe.mask, pe.senders + off, last).reshape(-1)
+        r = torch.where(pe.mask, pe.receivers + off, last).reshape(-1)
+        return PaddedEdges(senders=s, receivers=r, mask=pe.mask.reshape(-1))
+
+    return StaticGraph(g2m=flat(graph.g2m), m2m=flat(graph.m2m), m2g=flat(graph.m2g))

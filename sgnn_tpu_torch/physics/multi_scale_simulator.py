@@ -1,13 +1,15 @@
 """Multi-scale simulator: the single-scale contract over an injected
 static multi-scale graph.
 
-Port of ``sgnn_tpu/physics/multi_scale_simulator.py`` (serving):
+Port of ``sgnn_tpu/physics/multi_scale_simulator.py``:
 ``MultiScaleSimulatorConfig``, the parameter module
 ``MultiScaleSimulator`` (reference keys ``_multi_scale_gnn.*`` and, with
 several particle types, ``_particle_type_embedding.weight``),
 ``multi_scale_simulator_init``, the features, ``_forward``,
-``ms_predict_positions`` and ``ms_rollout``. Family differences kept from
-the reference:
+``ms_predict_positions``, the training forwards
+(``ms_predict_accelerations``, ``ms_forward_batched``,
+``ms_predict_accelerations_batched``) and ``ms_rollout``. Family
+differences kept from the reference:
 
   * the wall distance is normalised by the grid radius;
   * edge features normalise per edge type: grid radius for g2m and m2g,
@@ -15,8 +17,10 @@ the reference:
   * the static graph is built once per trajectory from t=0 positions
     and reused for every step (``graph_to`` moves it to the device once).
 
-The batched training forward comes with multi-scale training (ROADMAP.md,
-Queue A item 5b).
+A training batch stacks each sample's own graph on a leading axis;
+``ms_forward_batched`` flattens the batch into ONE block-diagonal graph
+(``flatten_dense_ms_graph`` / ``flatten_ms_graph``), so every gather is a
+flat row gather whose backward is one of the deterministic kernels.
 """
 
 from __future__ import annotations
@@ -30,13 +34,21 @@ from torch import nn
 from sgnn_tpu_torch.models.multi_scale import (
     MSGNNConfig,
     MultiScaleGNN,
+    flatten_dense_ms_graph,
+    flatten_ms_graph,
     multi_scale_gnn_apply,
     multi_scale_gnn_apply_dense,
 )
 from sgnn_tpu_torch.nn.core import Embedding
 from sgnn_tpu_torch.physics.multi_scale_graph import DenseStaticGraph, MultiScaleConfig, StaticGraph
 from sgnn_tpu_torch.physics.rollout import EROSIONAL_PARTICLE_ID, cumulative_rmse, per_step_rmse
-from sgnn_tpu_torch.physics.simulator import _DTYPES, NormStats, decoder_postprocess, time_diff
+from sgnn_tpu_torch.physics.simulator import (
+    _DTYPES,
+    NormStats,
+    decoder_postprocess,
+    inverse_decoder_postprocess,
+    time_diff,
+)
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 
 
@@ -205,6 +217,52 @@ def ms_predict_positions(sim, cfg, stats, current_positions, particle_types, gra
     """Next positions [N, dim] (Euler, dt = 1) and strain [N]."""
     norm_acc, strain = _forward(sim, cfg, stats, current_positions, particle_types, graph)
     return decoder_postprocess(stats, norm_acc, current_positions), strain
+
+
+def ms_predict_accelerations(sim, cfg, stats, next_positions, position_sequence_noise, position_sequence,
+                             particle_types, graph):
+    """The training forward of one graph: (predicted normalised
+    accelerations [N, dim], target accelerations [N, dim], predicted
+    strain [N]) of the noisy window."""
+    noisy = position_sequence + position_sequence_noise
+    pred_acc, pred_strain = _forward(sim, cfg, stats, noisy, particle_types, graph)
+    next_adjusted = next_positions + position_sequence_noise[:, -1]
+    return pred_acc, inverse_decoder_postprocess(stats, next_adjusted, noisy), pred_strain
+
+
+def ms_forward_batched(
+    sim: MultiScaleSimulator,
+    cfg: MultiScaleSimulatorConfig,
+    stats: NormStats,
+    position_sequences: torch.Tensor,  # [B, N, S, dim]
+    particle_types: torch.Tensor,  # [B, N]
+    graph,  # batched StaticGraph or DenseStaticGraph of tensors ([B, ...] leaves)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(normalised accelerations [B, N, dim], strain [B, N]) of the batch as
+    ONE flat block-diagonal graph. Outputs at padded nodes are garbage the
+    caller masks (padded nodes have no edges)."""
+    b, n = position_sequences.shape[:2]
+    dense = isinstance(graph, DenseStaticGraph)
+    flat_graph = flatten_dense_ms_graph(graph, n) if dense else flatten_ms_graph(graph, n)
+    nf = _ms_node_features(sim, cfg, stats, position_sequences, particle_types).reshape(b * n, -1)
+    ef = _ms_edge_features(cfg, position_sequences[..., -1, :].reshape(b * n, -1), flat_graph)
+    gnn, dt = sim._multi_scale_gnn, cfg.torch_compute_dtype
+    if dense:
+        pred = multi_scale_gnn_apply_dense(gnn, nf, ef, flat_graph, compute_dtype=dt)
+    else:
+        pred = multi_scale_gnn_apply(gnn, nf, ef, flat_graph, compute_dtype=dt, sorted_receivers=True)
+    pred = pred.reshape(b, n, -1)
+    return pred[..., : cfg.dim], pred[..., -1]
+
+
+def ms_predict_accelerations_batched(sim, cfg, stats, next_positions, position_sequence_noise, position_sequences,
+                                     particle_types, graph):
+    """The batched training forward ([B, N, ...] inputs, a batched graph);
+    the contract of ``ms_predict_accelerations``."""
+    noisy = position_sequences + position_sequence_noise
+    pred_acc, pred_strain = ms_forward_batched(sim, cfg, stats, noisy, particle_types, graph)
+    next_adjusted = next_positions + position_sequence_noise[..., -1, :]
+    return pred_acc, inverse_decoder_postprocess(stats, next_adjusted, noisy), pred_strain
 
 
 @torch.inference_mode()

@@ -132,7 +132,6 @@ def make_train_step(
     updates before this one (the schedule's argument); ``noise`` replaces
     the draw from ``generator`` (the parity tests inject JAX's). Metrics
     are 0-d tensors left on the device."""
-    sched = lr_schedule(cfg)
 
     def loss_fn(batch, noise):
         pred_acc, target_acc, pred_strain = predict_accelerations_batched(
@@ -157,6 +156,18 @@ def make_train_step(
             aux["train/loss-z"] = loss_xy[2]
         return loss, aux
 
+    return optimizer_step(loss_fn, optimizer, cfg, generator)
+
+
+def optimizer_step(
+    loss_fn: Callable, optimizer: torch.optim.Optimizer, cfg: TrainConfig, generator: Optional[torch.Generator] = None
+) -> Callable:
+    """The step ``(batch, step, noise=None) -> metrics`` around
+    ``loss_fn(batch, noise) -> (loss, aux)``: random-walk noise drawn from
+    ``generator`` unless given, the loss's gradients, and one update at
+    ``lr = sched(step)``, the step counted before the update as optax does."""
+    sched = lr_schedule(cfg)
+
     def step_fn(batch, step: int, noise: Optional[torch.Tensor] = None):
         if noise is None:
             noise = random_walk_position_noise(
@@ -176,10 +187,12 @@ def make_train_step(
 
 @dataclass
 class Training:
-    """What ``build_training`` wires together for ``train``."""
+    """What ``build_training`` wires together for ``train`` (of either
+    family: the multi-scale trainer fills it with its own simulator and
+    batcher)."""
 
-    sim: LearnedSimulator
-    sim_cfg: SimulatorConfig
+    sim: torch.nn.Module
+    sim_cfg: object
     stats: NormStats
     optimizer: torch.optim.Adam
     step_fn: Callable

@@ -1,19 +1,32 @@
-"""Multi-scale validation and rollout entry point.
+"""Multi-scale training, validation and rollout entry point.
 
-Port of ``sgnn_tpu/train/train_multi_scale.py`` (serving, single device):
-``ms_config_from``, ``evaluate_split``, ``predict`` and the CLI::
+Port of ``sgnn_tpu/train/train_multi_scale.py`` (single device):
+``ms_config_from``, ``lr_schedule``, ``make_train_step``,
+``build_training`` (the model, optimizer, step and batcher ``train``
+runs), ``train``, ``evaluate_split``, ``predict`` and the CLI::
 
   python -m sgnn_tpu_torch.train.train_multi_scale --config configs/taylor2d_multi_scale.yaml \\
-      --mode valid|rollout --model_file NAME [--device cuda|cpu]
+      --mode train|valid|rollout [--model_file NAME] [--device cuda|cpu]
+
+Each training step draws random-walk noise from a ``torch.Generator``
+seeded from ``cfg.seed``, runs the batched forward over the batch's
+per-sample static graphs flattened into one (``ms_forward_batched``:
+every latent-row gather is the row-gather kernel, its backward the sorted
+segment sum or the transpose plan's kernel), takes the masked position +
+strain loss, its gradients, and one ``torch.optim.Adam`` update at
+``lr = sched(step)`` (optax's defaults, ``train.train.make_optimizer``).
+``inner_steps`` runs as a plain loop of single steps; batches are copied
+to the device synchronously. Best-only checkpoints on the validation
+rollout loss, a final one when no validation ran or on interrupt, resume
+from ``model_file``.
 
 ``predict`` restores the simulator from a train-state checkpoint
 (``{"params", "opt_state", "step"}``, ``train/checkpoint.py``), builds one
 static graph per trajectory in the layout ``ms_dense`` picks (``"auto"``,
 True or False) and rolls every trajectory out with ``ms_rollout``. The
 multi-scale family scores a rollout by its PER-STEP RMSE: total, position
-and strain at the last step, one_step at the first. ``--mode train``,
-data-parallel and graph-parallel runs are not ported yet (ROADMAP.md,
-Queue A items 5b and 6).
+and strain at the last step, one_step at the first. Data-parallel and
+graph-parallel runs are not ported yet (ROADMAP.md, Queue A item 6).
 """
 
 from __future__ import annotations
@@ -23,26 +36,28 @@ import pickle
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from sgnn_tpu_torch.data.loader import load_metadata
-from sgnn_tpu_torch.data.static_graph_loader import MultiScaleTrajectoryLoader
+from sgnn_tpu_torch.data.static_graph_loader import MultiScaleSampleBatcher, MultiScaleTrajectoryLoader
 from sgnn_tpu_torch.physics.multi_scale_simulator import (
     MultiScaleSimulator,
     MultiScaleSimulatorConfig,
+    graph_to,
+    ms_predict_accelerations_batched,
     ms_rollout,
     multi_scale_simulator_init,
 )
-from sgnn_tpu_torch.physics.simulator import make_norm_stats
-from sgnn_tpu_torch.train.checkpoint import CheckpointManager
+from sgnn_tpu_torch.physics.simulator import NormStats, make_norm_stats
+from sgnn_tpu_torch.train.checkpoint import CheckpointManager, train_state
 from sgnn_tpu_torch.train.config import TrainConfig, load_config
+from sgnn_tpu_torch.train.metrics import MetricLogger
+from sgnn_tpu_torch.train.train import Training, lr_schedule, make_optimizer, optimizer_step
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 from sgnn_tpu_torch.utils.resource_monitor import ResourceMonitor
-
-NOT_PORTED_TRAIN = "multi-scale training is not ported yet (ROADMAP.md, Queue A item 5b)"
 
 
 def ms_config_from(cfg: TrainConfig, metadata: dict) -> MultiScaleSimulatorConfig:
@@ -59,6 +74,73 @@ def ms_config_from(cfg: TrainConfig, metadata: dict) -> MultiScaleSimulatorConfi
         radius_multiplier=cfg.radius_multiplier,
         compute_dtype=cfg.compute_dtype,
     )
+
+
+def batch_to_device(batch: Dict[str, object], device: torch.device) -> Dict[str, object]:
+    """A host batch on ``device``: its arrays as tensors, its stacked graph
+    as the same graph of tensors."""
+    return {k: graph_to(v, device) if k == "graph" else torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def make_train_step(
+    sim: MultiScaleSimulator,
+    sim_cfg: MultiScaleSimulatorConfig,
+    stats: NormStats,
+    cfg: TrainConfig,
+    optimizer: torch.optim.Optimizer,
+    generator: Optional[torch.Generator] = None,
+) -> Callable:
+    """The step ``(batch, step, noise=None) -> metrics``: updates ``sim``'s
+    parameters in place through ``optimizer``. ``step`` is the count of
+    updates before this one (the schedule's argument); ``noise`` replaces
+    the draw from ``generator`` (the parity tests inject JAX's). Metrics
+    (the JAX step's names) are 0-d tensors left on the device."""
+    def loss_fn(batch, noise):
+        pred_acc, target_acc, pred_strain = ms_predict_accelerations_batched(
+            sim, sim_cfg, stats, batch["next_position"], noise, batch["positions"], batch["particle_type"],
+            batch["graph"],
+        )
+        mask = batch["node_mask"].to(pred_acc.dtype)  # [B, N]
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss_pos = ((pred_acc - target_acc) ** 2).sum(dim=-1)
+        loss_strain = (pred_strain - batch["next_strain"]) ** 2
+        loss = cfg.loss_weight_position * loss_pos + cfg.loss_weight_strain * loss_strain
+        aux = {
+            "train/loss-position": (loss_pos * mask).sum() / denom,
+            "train/loss-strain": (loss_strain * mask).sum() / denom,
+        }
+        return (loss * mask).sum() / denom, aux
+
+    return optimizer_step(loss_fn, optimizer, cfg, generator)
+
+
+def _dense_row_advantage(cfg: TrainConfig) -> float:
+    # the JAX trainer's rule: bf16 halves the dense layout's edge traffic,
+    # so dense is taken up to twice the slot padding
+    return 4.0 if cfg.compute_dtype == "bfloat16" else 2.0
+
+
+def build_training(cfg: TrainConfig, device: torch.device, batch_size: Optional[int] = None) -> Training:
+    """The model from ``cfg.seed``, its optimizer, the training step (noise
+    from a generator seeded from ``cfg.seed``) and the batcher of the
+    training split with its static graphs in the layout ``cfg.ms_dense``
+    picks; ``batch_size`` overrides ``cfg.batch_size``."""
+    data_dir = Path(cfg.data_path)
+    metadata = load_metadata(data_dir)
+    sim_cfg = ms_config_from(cfg, metadata)
+    stats = make_norm_stats(metadata, cfg.noise_std, device=device)
+    sim = multi_scale_simulator_init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=device)
+    optimizer = make_optimizer(sim, cfg)
+    noise_gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    step_fn = make_train_step(sim, sim_cfg, stats, cfg, optimizer, noise_gen)
+    batcher = MultiScaleSampleBatcher(
+        data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size,
+        ms_cfg=sim_cfg.graph_config, pad_multiple=cfg.pad_multiple, edge_pad_multiple=cfg.edge_pad_multiple,
+        seed=cfg.seed, dense=cfg.ms_dense, dense_row_advantage=_dense_row_advantage(cfg),
+        m2m_traversals=cfg.layers,
+    )
+    return Training(sim, sim_cfg, stats, optimizer, step_fn, batcher)
 
 
 def evaluate_split(sim: MultiScaleSimulator, loader: MultiScaleTrajectoryLoader, rollout: Callable):
@@ -96,9 +178,7 @@ def make_loader(cfg: TrainConfig, sim_cfg: MultiScaleSimulatorConfig, split: str
         pad_multiple=cfg.pad_multiple,
         edge_pad_multiple=cfg.edge_pad_multiple,
         dense=cfg.ms_dense,
-        # the JAX trainer's rule: bf16 halves the dense layout's edge
-        # traffic, so dense is taken up to twice the slot padding
-        dense_row_advantage=4.0 if cfg.compute_dtype == "bfloat16" else 2.0,
+        dense_row_advantage=_dense_row_advantage(cfg),
         m2m_traversals=cfg.layers,
     )
 
@@ -108,6 +188,106 @@ def _refuse_parallel(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             "data_parallel and graph_parallel are not ported yet (ROADMAP.md, Queue A item 6)"
         )
+
+
+def _rollout_fn(sim_cfg: MultiScaleSimulatorConfig, stats: NormStats, mode: str, device: torch.device) -> Callable:
+    def rollout(sim, positions, types, strains, node_mask, graph):
+        return ms_rollout(sim, sim_cfg, stats, positions, types, strains, graph,
+                          node_mask=node_mask, inference_mode=mode, device=device)
+
+    return rollout
+
+
+def train(cfg: TrainConfig, device: Device = None) -> dict:
+    """Train on ``device`` (CUDA unless told otherwise); returns
+    ``{"step", "lowest_eval_loss"}``."""
+    dev = resolve_device(device)
+    _refuse_parallel(cfg)
+    inner = max(1, int(cfg.inner_steps))
+    for name in ("log_every", "nsave_steps", "ntraining_steps"):
+        if getattr(cfg, name) % inner:
+            raise ValueError(f"{name}={getattr(cfg, name)} must be a multiple of inner_steps={inner}")
+    built = build_training(cfg, dev)
+    sim, sim_cfg, stats, optimizer = built.sim, built.sim_cfg, built.stats, built.optimizer
+    ckpt_dir = Path(cfg.model_path) / cfg.run_name
+    ckpt = CheckpointManager(ckpt_dir)
+    lowest_eval_loss = float("inf")
+    step = 0
+    if cfg.model_file is not None:
+        state, meta = ckpt.restore(cfg.model_file, map_location=dev)
+        sim.load_state_dict(state["params"], strict=True)
+        if state["opt_state"] is not None:
+            optimizer.load_state_dict(state["opt_state"])
+        step = int(state["step"])
+        lowest_eval_loss = meta.get("lowest_eval_loss") or float("inf")
+        print(f"resumed from {cfg.model_file} at step {step}")
+
+    batcher, train_step = built.batcher, built.step_fn
+    valid_loader = make_loader(cfg, sim_cfg, "valid")
+    rollout = _rollout_fn(sim_cfg, stats, cfg.inference_mode, dev)
+    monitor = ResourceMonitor(dev)
+    sched = lr_schedule(cfg)
+    print(
+        f"multi-scale training: scales={cfg.num_scales} window={cfg.window_size} layers={cfg.layers} "
+        f"hidden={cfg.hidden_dim} batch={cfg.batch_size} nodes_padded={batcher.num_nodes} "
+        f"dtype={cfg.compute_dtype} steps={cfg.ntraining_steps} device={dev}"
+    )
+
+    logger = MetricLogger(ckpt_dir, use_wandb=cfg.log, project=cfg.project_name, run_name=cfg.run_name)
+    source = batcher.epochs()
+    interrupted = False
+    t_last = time.perf_counter()
+    try:
+        while step < cfg.ntraining_steps:
+            for _ in range(inner):  # inner_steps: a plain loop of single steps
+                metrics = train_step(batch_to_device(next(source), dev), step)
+                step += 1
+
+            if step % cfg.log_every == 0:
+                metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+                metrics["lr"] = float(sched(step))
+                dt = (time.perf_counter() - t_last) / cfg.log_every
+                t_last = time.perf_counter()
+                metrics["train/step_time_s"] = dt
+                logger.log(metrics, step)
+                print(f"step {step}: loss={metrics['train/loss']:.6f} ({dt * 1e3:.1f} ms/step)")
+
+            if step % cfg.nsave_steps == 0 and step > 0:
+                print(f"validating at step {step}...")
+                monitor.start()
+                _, summary = evaluate_split(sim, valid_loader, rollout)
+                val_stats = monitor.stop()
+                t_last = time.perf_counter()  # step times exclude validation
+                if not summary:
+                    print("  WARNING: validation split is empty — skipping")
+                    continue
+                logger.log(
+                    {
+                        "val/loss": summary["total"],
+                        "val/loss-position": summary["position"],
+                        "val/loss-strain": summary["strain"],
+                        "val/rmse-oneStep": summary["one_step"],
+                        "val/runtime": val_stats["elapsed_time"],
+                        "val/mean_time": summary["mean_time"],
+                        "val/std_time": summary["std_time"],
+                    },
+                    step,
+                )
+                print(f"  val loss={summary['total']:.6f} (best {lowest_eval_loss:.6f})")
+                if summary["total"] < lowest_eval_loss:
+                    lowest_eval_loss = summary["total"]
+                    path = ckpt.save_best(train_state(sim, optimizer, step), step, lowest_eval_loss)
+                    print(f"  new best -> {path.name}")
+    except KeyboardInterrupt:
+        interrupted = True  # the reference saves a fallback checkpoint on interrupt
+        print("training interrupted")
+    finally:
+        logger.close()
+
+    if interrupted or lowest_eval_loss == float("inf"):
+        path = ckpt.save_final(train_state(sim, optimizer, step), step)
+        print(f"saved fallback {path.name}")
+    return {"step": step, "lowest_eval_loss": lowest_eval_loss}
 
 
 def predict(cfg: TrainConfig, device: Device = None) -> dict:
@@ -130,14 +310,9 @@ def predict(cfg: TrainConfig, device: Device = None) -> dict:
 
     split = "test" if cfg.mode == "rollout" else "valid"
     loader = make_loader(cfg, sim_cfg, split)
-
-    def rollout(sim_, positions, types, strains, node_mask, graph):
-        return ms_rollout(sim_, sim_cfg, stats, positions, types, strains, graph,
-                          node_mask=node_mask, inference_mode=cfg.inference_mode, device=dev)
-
     monitor = ResourceMonitor(dev)
     monitor.start()
-    outputs, summary = evaluate_split(sim, loader, rollout)
+    outputs, summary = evaluate_split(sim, loader, _rollout_fn(sim_cfg, stats, cfg.inference_mode, dev))
     run_stats = monitor.stop()
 
     if cfg.mode == "rollout":
@@ -163,7 +338,7 @@ def predict(cfg: TrainConfig, device: Device = None) -> dict:
 
 
 def main(argv: Optional[list] = None, device: Device = None):
-    parser = argparse.ArgumentParser(description="Multi-scale GNN validation and rollout (PyTorch/CUDA)")
+    parser = argparse.ArgumentParser(description="Multi-scale GNN training and rollout (PyTorch/CUDA)")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--mode", type=str, choices=["train", "valid", "rollout"])
     parser.add_argument("--model_file", type=str)
@@ -176,7 +351,7 @@ def main(argv: Optional[list] = None, device: Device = None):
     )
     print(f"config loaded from {args.config}; mode={cfg.mode}")
     if cfg.mode == "train":
-        raise NotImplementedError(NOT_PORTED_TRAIN)
+        return train(cfg, device=args.device or device)
     return predict(cfg, device=args.device or device)
 
 

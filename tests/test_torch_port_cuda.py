@@ -258,6 +258,125 @@ def test_row_gather_kernels_equal_the_plain_version(cuda, variant, rows, w, idx_
 
 
 def test_row_gather_refuses_grad_on_the_card(cuda):
+    """A bare row_gather has no backward; the model's Functions do."""
     tbl = torch.randn(8, 16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 5b"):
-        rg.row_gather(tbl, torch.zeros(4, dtype=torch.int32, device=cuda))
+    idx = torch.tensor([0, 0, 3, 7], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="sorted_gather"):
+        rg.row_gather(tbl, idx)
+    before = dict(rg.BWD_LAUNCHES)
+    (grad,) = torch.autograd.grad(rg.sorted_gather(tbl, idx, 8).sum(), tbl)
+    assert rg.BWD_LAUNCHES == {**before, "sorted": before["sorted"] + 1}
+    assert torch.equal(grad.cpu()[:, 0], torch.tensor([2.0, 0, 0, 1, 0, 0, 0, 1]))
+
+
+# --- the gathers' backwards (csrc/row_gather_bwd.cu) ---------------------------------
+
+# f32: the kernels add in the plain versions' order, from 0; the stated
+# limit is 1e-6 relative and absolute. bf16: f32 sums rounded once, within
+# one bf16 step (2^-7 relative) of the plain version.
+BWD_GATHER_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (0.0, 2.0**-7)}  # (atol, rtol)
+
+
+def _sorted_inputs(m, n, w, dtype, itype, device, seed):
+    """g [m, w] and ascending ids with repeats, gaps (rows with no id) and
+    a long run at the last node (the dense layout's padded rows)."""
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.sort(torch.randint(0, n, (m,), generator=gen)).values
+    idx[-min(m, 9):] = n - 1
+    g = torch.randn(m, w, generator=gen).to(dtype)
+    return g.to(device), idx.to(itype).to(device)
+
+
+def _plan_inputs(n, edges, w, dtype, itype, device, seed, k_slots=None, tsp_slots=None):
+    """g [R*K, w] (nonzero at masked slots too: the kernel must skip them)
+    and the transpose plan of random edges over n nodes, padded rows and
+    all, built by the port's host code."""
+    import numpy as np
+
+    from sgnn_tpu_torch.physics.multi_scale_graph import CooEdges, dense_edges
+
+    rng = np.random.default_rng(seed)
+    coo = CooEdges(rng.integers(0, n, edges).astype(np.int32), rng.integers(0, n, edges).astype(np.int32))
+    degree = np.bincount(coo.receivers).max()
+    de = dense_edges(coo, n, len(np.unique(coo.receivers)) + 5, k_slots or int(degree), tsp_slots=tsp_slots)
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn(de.senders.size, w, generator=gen).to(dtype).to(device)
+    plan = [torch.from_numpy(de.tsp_rows).to(itype).to(device), torch.from_numpy(de.tsp_node).to(itype).to(device),
+            torch.from_numpy(de.tsp_mask).to(device)]
+    return g, plan
+
+
+def _check_bwd_gather(got, want, dtype):
+    atol, rtol = BWD_GATHER_TOL[dtype]
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    assert (err <= atol + rtol * want.float().abs()).all(), float(err.max())
+
+
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,n,w", [
+    (19456, 77824, 128),  # the m2m receivers of a batch of 16
+    (73728, 77824, 128),  # the m2g receivers
+    (1001, 97, 8),  # ragged: runs of many ids, W of 16 bytes in bf16
+    (0, 5, 8),  # no ids: every row zero
+])
+def test_sorted_segment_sum_kernel_matches_plain_and_repeats_bits(cuda, m, n, w, dtype, itype):
+    g, idx = _sorted_inputs(m, n, w, dtype, itype, cuda, seed=m + n)
+    before = rg.BWD_LAUNCHES["sorted"]
+    got = rg.sorted_segment_sum(g, idx, n)
+    again = rg.sorted_segment_sum(g, idx, n)
+    assert rg.BWD_LAUNCHES["sorted"] == before + 2
+    torch.cuda.synchronize()
+    _check_bwd_gather(got, rg.sorted_segment_sum_reference(g, idx, n), dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,edges,w,k_slots,tsp_slots", [
+    (4864, 20000, 128, 24, None),  # m2m-like: about 4 edges per sender
+    (301, 3000, 8, None, 40),  # plan slots past one warp's 32
+    (50, 7, 16, None, None),  # few edges: most rows empty
+])
+def test_planned_gather_bwd_kernel_matches_plain_and_repeats_bits(cuda, n, edges, w, k_slots, tsp_slots, dtype,
+                                                                  itype):
+    g, plan = _plan_inputs(n, edges, w, dtype, itype, cuda, seed=n, k_slots=k_slots, tsp_slots=tsp_slots)
+    before = rg.BWD_LAUNCHES["planned"]
+    got = rg.planned_gather_bwd(g, *plan, n)
+    again = rg.planned_gather_bwd(g, *plan, n)
+    assert rg.BWD_LAUNCHES["planned"] == before + 2
+    torch.cuda.synchronize()
+    _check_bwd_gather(got, rg.planned_gather_bwd_reference(g, *plan, n), dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gather_functions_take_their_kernels_on_the_card(cuda, dtype):
+    """sorted_gather and planned_gather: the forward is the take kernel,
+    each backward its kernel, the gradients those of the plain versions;
+    indexed_gather's backward is index_add_."""
+    import numpy as np
+
+    from sgnn_tpu_torch.physics.multi_scale_graph import CooEdges, dense_edges
+
+    rng = np.random.default_rng(1)
+    n, w = 200, 32
+    de = dense_edges(CooEdges(rng.integers(0, n, 900).astype(np.int32), rng.integers(0, n, 900).astype(np.int32)),
+                     n, 200, 16)
+    de = [torch.from_numpy(a).to(cuda) for a in de]
+    table = torch.randn(n, w, device=cuda).to(dtype).requires_grad_(True)
+    launches, bwd = dict(rg.LAUNCHES), dict(rg.BWD_LAUNCHES)
+    proj_i = rg.sorted_gather(table, de[0], n)
+    xj = rg.planned_gather(table, de[1], *de[3:], n)
+    xs = rg.indexed_gather(table, de[1], n)
+    cot_i = torch.randn_like(proj_i)
+    cot_j = torch.randn_like(xj) * de[2][..., None]  # zero at masked slots, as the model's
+    got = torch.autograd.grad((proj_i, xj, xs), table, (cot_i, cot_j, cot_j))[0]
+    assert rg.LAUNCHES[rg.MODEL_VARIANT] == launches[rg.MODEL_VARIANT] + 3
+    assert rg.BWD_LAUNCHES == {"sorted": bwd["sorted"] + 1, "planned": bwd["planned"] + 1}
+    want = (rg.sorted_segment_sum_reference(cot_i, de[0], n).float()
+            + rg.planned_gather_bwd_reference(cot_j.reshape(-1, w), *de[3:], n).float()
+            + torch.zeros(n, w, device=cuda).index_add_(0, de[1].reshape(-1), cot_j.reshape(-1, w).float()))
+    atol = 1e-5 if dtype == torch.float32 else 2.0**-5 * float(want.abs().max())
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=1e-5 if dtype == torch.float32 else 2.0**-6)

@@ -69,6 +69,15 @@ def test_entry_points_need_cuda_without_a_device(no_cuda):
         ttrain.main(["--config", str(REPO / "configs" / "taylor2d_single_scale.yaml"), "--mode", "rollout"])
 
 
+def test_ms_train_needs_cuda_without_a_device(no_cuda):
+    from sgnn_tpu_torch.train import train_multi_scale as ttms
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttms.train(TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttms.main(["--config", str(REPO / "configs" / "taylor2d_multi_scale.yaml"), "--mode", "train"])
+
+
 def test_probe_needs_cuda_without_a_device(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tprobe.main([])
@@ -77,7 +86,8 @@ def test_probe_needs_cuda_without_a_device(no_cuda):
 def test_the_walk_reaches_every_new_module():
     names = {str(p.relative_to(REPO)) for p in SOURCES}
     assert {"sgnn_tpu_torch/scripts/gather_kernel_probe.py", "sgnn_tpu_torch/ops/row_gather.py",
-            "sgnn_tpu_torch/models/multi_scale.py", "sgnn_tpu_torch/train/train_multi_scale.py"} <= names
+            "sgnn_tpu_torch/models/multi_scale.py", "sgnn_tpu_torch/train/train_multi_scale.py",
+            "sgnn_tpu_torch/data/static_graph_loader.py", "sgnn_tpu_torch/physics/multi_scale_simulator.py"} <= names
 
 
 def test_resolve_device_passes_explicit_choices():
@@ -95,7 +105,7 @@ def test_rollout_refuses_a_simulator_on_another_device():
 
 
 def test_kernel_sources_and_build_paths():
-    assert {"edge_block_fwd", "edge_block_bwd", "row_gather"} <= set(build.sources())
+    assert {"edge_block_fwd", "edge_block_bwd", "row_gather", "row_gather_bwd"} <= set(build.sources())
     lib = build.library_path("edge_block_fwd")
     assert lib.parent == REPO / "build" / "kernels"  # ignored by .gitignore's build/
     assert lib.name.startswith("libedge_block_fwd-") and lib.suffix == ".so"

@@ -259,9 +259,9 @@ def test_forward_gathers_latent_rows_through_row_gather(rng, monkeypatch):
     _, sim = sim_pair(jcfg, tcfg)
     grid = GRIDS["jittered12x5"]
     calls = []
-    import sgnn_tpu_torch.models.multi_scale as tmodel
+    gather = rg.row_gather  # the forward of every gather Function of the model
 
-    monkeypatch.setattr(tmodel, "row_gather", lambda t, i: calls.append(t.shape[1]) or rg.row_gather(t, i))
+    monkeypatch.setattr(rg, "row_gather", lambda t, i: calls.append(t.shape[1]) or gather(t, i))
     stats = TNormStats(torch.zeros(2), torch.ones(2), torch.zeros(2), torch.ones(2))
     seq = torch.from_numpy(sequence(rng, grid))
     for layout, per_step in (("coo", 2 * (2 + 2)), ("dense", 2 * (2 + 2 * 2))):
@@ -431,11 +431,13 @@ def test_inference_cli_runs_predict(tiny_data, tmp_path):
 
 
 def test_train_mode_is_refused(tiny_data, tmp_path):
-    yml = write_yaml(tmp_path / "ms.yaml", tiny_config(tiny_data))
-    with pytest.raises(NotImplementedError, match="Queue A item 5b"):
-        ttms.main(["--config", str(yml), "--mode", "train", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        ttms.predict(tiny_config(tiny_data, data_parallel=2), device="cpu")
+    """Training runs (tests/test_torch_port_ms_train.py); data-parallel and
+    graph-parallel training and prediction are refused."""
+    for kw in (dict(data_parallel=2), dict(graph_parallel=2, batch_size=1)):
+        with pytest.raises(NotImplementedError, match="Queue A item 6"):
+            ttms.train(tiny_config(tiny_data, mode="train", run_name="refused", **kw), device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue A item 6"):
+            ttms.predict(tiny_config(tiny_data, **kw), device="cpu")
 
 
 @pytest.fixture
