@@ -4,8 +4,14 @@
 // reached through `make_pallas_gather` (pl.pallas_call at :83):
 //
 //   _gather_loop_kernel    (:56-61)  one row per loop step
-//       -> row_gather_loop_kernel: each warp walks its rows one at a time;
-//          the lanes copy a row with 16-byte accesses.
+//       -> row_gather_loop_kernel: a loop over rows that fills the warp.
+//          Each warp walks chunks of up to 32 output rows: one coalesced
+//          load of the chunk's indices (the next chunk's is issued before
+//          this chunk's rows are stored), handed out by shuffles; lane
+//          groups of pieces_per_row lanes take one row each, so a warp
+//          step copies 32 / pieces_per_row rows (4 at W = 64 bf16, 2 in
+//          f32, 1 at W = 128 f32; wider rows take several steps), and each
+//          lane issues kLoopBatch steps' row loads before it stores any.
 //   _gather_unroll8_kernel (:64-71)  8 rows per step, one stacked store
 //       -> row_gather_unroll8_kernel: each warp reads 8 indices and issues
 //          all 8 row loads before it stores any of them, so 8 rows are in
@@ -33,6 +39,12 @@
 // stay after their first read from HBM; every write goes out as a full
 // 16-byte vector, and neighbouring lanes write neighbouring addresses.
 // Plain loads and stores: TMA and cp.async pipelining are later work.
+// The loop kernel's grid holds as many blocks as fit on the card at once
+// (the occupancy query), each warp walking every (warps)-th chunk. Chunks
+// hold at most 32 rows and are sized so that every warp walks the same
+// number of them (one of 10 rows at the model's m2m sender gather, four of
+// 25 at the probe): a short gather leaves no warp idle, and no warp walks
+// one chunk more than most while the card waits for it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,8 +54,10 @@
 namespace {
 
 constexpr int kThreads = 256;        // threads per block (8 warps)
-constexpr int kBlocksPerSm = 8;      // grid cap of the warp-walking kernels
+constexpr int kBlocksPerSm = 8;      // grid cap of the unroll8 kernel
 constexpr int kUnroll = 8;           // rows in flight per warp (unroll8)
+constexpr int kLoopBatch = 4;        // 16-byte row loads in flight per lane (loop; 8 cost occupancy)
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename I>
 __device__ __forceinline__ long long clamp_row(I v, int rows) {
@@ -60,14 +74,52 @@ __device__ __forceinline__ int pieces_per_row(int W) {
 template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads)
 row_gather_loop_kernel(const uint4* __restrict__ tbl, const I* __restrict__ idx,
-                       uint4* __restrict__ out, int n, int rows, int W) {
+                       uint4* __restrict__ out, int n, int rows, int W, int chunk_rows) {
   const int ppr = pieces_per_row<T>(W);
   const int lane = threadIdx.x & 31;
+  // a row of at most 32 pieces: groups of ppr lanes, rps rows per step
+  // (lanes past rps * ppr idle); a wider row: the whole warp, span / 32
+  // steps per row, lanes past the row's last piece idle in its last step
+  const bool narrow = ppr <= 32;
+  const int rps = narrow ? 32 / ppr : 1;
+  const int span = narrow ? ppr : (ppr + 31) / 32 * 32;
+  const int group = narrow ? lane / ppr : 0;
+  const int col = narrow ? lane - group * ppr : lane;
+  const int passes = narrow ? 1 : span / 32;  // steps per row (group)
+  const int first = group < rps ? group : 32;  // an idle lane starts past every chunk
+  const int chunks = static_cast<int>((n + chunk_rows - 1LL) / chunk_rows);
   const int warps = gridDim.x * (kThreads / 32);
-  for (int i = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5); i < n; i += warps) {
-    const uint4* src = tbl + clamp_row(idx[i], rows) * ppr;
-    uint4* dst = out + static_cast<long long>(i) * ppr;
-    for (int p = lane; p < ppr; p += 32) dst[p] = src[p];
+  const long long stride = static_cast<long long>(warps) * chunk_rows;
+  int chunk = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  long long at = static_cast<long long>(chunk) * chunk_rows + lane;
+  I ahead = chunk < chunks && lane < chunk_rows && at < n ? idx[at] : I(0);
+  for (; chunk < chunks; chunk += warps) {
+    const int mine = static_cast<int>(clamp_row(ahead, rows));  // lane j: row j's table row
+    const long long base = static_cast<long long>(chunk) * chunk_rows;
+    at += stride;  // the next chunk's index, fetched ahead
+    ahead = chunk + warps < chunks && lane < chunk_rows && at < n ? idx[at] : I(0);
+    const int cnt = n - base < chunk_rows ? static_cast<int>(n - base) : chunk_rows;
+    const int steps = (cnt + rps - 1) / rps * passes;
+    uint4* dst = out + base * ppr;
+    int r = first, p = col;  // this lane's row in the chunk and piece of the row
+    for (int t = 0; t < steps; t += kLoopBatch) {
+      uint4 v[kLoopBatch];
+      int put[kLoopBatch];  // piece of the chunk's output, or -1
+#pragma unroll
+      for (int u = 0; u < kLoopBatch; ++u) {
+        const int src = __shfl_sync(kFull, mine, r & 31);
+        put[u] = r < cnt && p < ppr ? r * ppr + p : -1;
+        if (put[u] >= 0) v[u] = tbl[static_cast<long long>(src) * ppr + p];
+        p += 32;
+        if (p >= span) {
+          p = col;
+          r += rps;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoopBatch; ++u)
+        if (put[u] >= 0) dst[put[u]] = v[u];
+    }
   }
 }
 
@@ -134,14 +186,26 @@ cudaError_t launch(int variant, const void* tbl, const void* idx, void* out, int
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  const long long items = variant == kLoop ? n : (n + kUnroll - 1) / kUnroll;  // warp work items
-  const long long want = (items + kThreads / 32 - 1) / (kThreads / 32);
-  const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
-  const int grid = static_cast<int>(want < cap ? want : cap);
-  if (variant == kLoop)
-    row_gather_loop_kernel<T, I><<<grid, kThreads, 0, stream>>>(t, x, o, n, rows, W);
-  else
+  if (variant == kLoop) {
+    static int resident = 0;  // blocks of the loop kernel that fit on one SM at once
+    if (resident == 0 &&
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, row_gather_loop_kernel<T, I>, kThreads,
+                                                             0)) != cudaSuccess)
+      return err;
+    const long long cap = static_cast<long long>(sms) * (resident > 0 ? resident : 1);  // blocks
+    // every resident warp walks the same number of chunks, of at most 32 rows
+    const long long warps = cap * (kThreads / 32), walks = (n + 32 * warps - 1) / (32 * warps);
+    const int chunk_rows = static_cast<int>((n + walks * warps - 1) / (walks * warps));
+    const long long want = ((n + chunk_rows - 1LL) / chunk_rows + kThreads / 32 - 1) / (kThreads / 32);
+    const int grid = static_cast<int>(want < cap ? want : cap);
+    row_gather_loop_kernel<T, I><<<grid, kThreads, 0, stream>>>(t, x, o, n, rows, W, chunk_rows);
+  } else {
+    const long long items = (n + kUnroll - 1) / kUnroll;  // warp work items
+    const long long want = (items + kThreads / 32 - 1) / (kThreads / 32);
+    const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
+    const int grid = static_cast<int>(want < cap ? want : cap);
     row_gather_unroll8_kernel<T, I><<<grid, kThreads, 0, stream>>>(t, x, o, n, rows, W);
+  }
   return cudaGetLastError();
 }
 

@@ -14,14 +14,33 @@
 //          tsp_node[r] == n of (sum over slots k with tsp_mask[r, k] of
 //          g[tsp_rows[r, k]]).
 //
-// Both are deterministic: one warp owns one output row, finds its run of
-// ascending ids with a 32-way search (three probes of the id array at the
-// model's sizes), sums the run in index order (the planned one: each plan
+// Both are deterministic: each output row is summed by one lane group,
+// over its run of ascending ids in index order (the planned one: each plan
 // row's slots in slot order, then the rows in row order) in f32 from 0,
-// rounds once to g's type and writes the row, zero where the run is empty.
+// rounded once to g's type and written once, zero where the run is empty.
 // No atomics; two launches on the same inputs give the same bits. The
 // plain versions in sgnn_tpu_torch/ops/row_gather.py add in the same
 // order, so the two agree bit for bit.
+//
+// sorted_segment_sum_kernel: one warp per output row finds its run with
+// two 32-way searches (three probes of the id array at the model's sizes).
+//
+// planned_gather_bwd_kernel: work goes by plan row, not by output row,
+// so no warp searches. A lane group of pieces_per_row lanes (rounded up to
+// a power of two: 16 in bf16 and 32 in f32 at W = 128; 32 / group rows
+// per warp) takes plan row r. If tsp_node[r] differs from tsp_node[r - 1],
+// r starts its node's run and the group owns that node: it writes the zero
+// rows of the nodes between the two (a flat run of 16-byte stores; a
+// group past the last plan row writes those after it), sums the run row
+// by row and writes the node's row. A row that continues a run does
+// nothing. The group reads a round of `group` plan slots with one
+// coalesced load each of tsp_rows and tsp_mask (the first round in the
+// same round trip as the nodes, the next while this one's loads are in
+// flight), hands them out by shuffles, and issues kSlotBatch slots' 16-byte
+// cotangent loads before it adds them, in slot order, up to the last
+// unmasked slot. A masked slot inside a batch adds +0.0, which leaves an
+// f32 sum begun at +0.0 unchanged bit for bit (the plain version adds the
+// same zero).
 //
 // Types: T = float or __nv_bfloat16 (g and the output), I = int32 or int64
 // (the ids, the plan's rows and nodes). A row of W values is a multiple of
@@ -32,10 +51,13 @@
 //
 // What bounds them: no arithmetic to speak of; the bytes. The least each
 // must move is g's rows that the ids (the plan's unmasked slots) name,
-// the ids (plan) once and the [N, W] output. The design is the simplest
-// that writes each output once without atomics: a warp per output row,
-// the search's probes and the runs' rows read through L2. The warps of
-// rows with an empty run only search and write zeros.
+// the ids (plan) once and the [N, W] output. Both write each output once
+// without atomics and read the ids and the runs' rows through L2. The
+// sorted kernel's warps of rows with an empty run only search and write
+// zeros. The planned kernel was one warp per output row too, two searches
+// and one load in flight per lane: at half the bytes its bf16 case had
+// nothing to hide that latency behind. Now a group's chain is one round
+// trip for the plan, one or two of cotangent loads and its stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,9 +66,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps, one output row each
+constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSlotBatch = 8;  // cotangent loads in flight per lane (planned)
+// blocks per SM the planned kernel's registers must leave room for (at most
+// 64 registers a thread): one more block of warps in flight than ptxas
+// picks unasked, which was faster in f32 on the H100 and no slower in bf16
+constexpr int kPlannedBlocksPerSm = 4;
 
 template <typename T>
 struct Piece;  // a 16-byte piece of a row, as f32 values
@@ -129,53 +156,102 @@ sorted_segment_sum_kernel(const uint4* __restrict__ g, const I* __restrict__ idx
   }
 }
 
+// lanes per group of the planned kernel: ppr rounded up to a power of two, at most 32
+__host__ __device__ __forceinline__ int group_lanes(int ppr) {
+  int gs = 1;
+  while (gs < ppr && gs < 32) gs <<= 1;
+  return gs;
+}
+
+// plan slot `at`'s g row, clamped into [0, g_rows), or -1 if masked
+template <typename I>
+__device__ __forceinline__ int slot_row(const I* __restrict__ tsp_rows, const uint8_t* __restrict__ tsp_mask,
+                                        long long at, long long g_rows) {
+  const long long v = static_cast<long long>(tsp_rows[at]);
+  return tsp_mask[at] ? static_cast<int>(v < 0 ? 0 : (v >= g_rows ? g_rows - 1 : v)) : -1;
+}
+
 template <typename T, typename I>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kPlannedBlocksPerSm)
 planned_gather_bwd_kernel(const uint4* __restrict__ g, long long g_rows, const I* __restrict__ tsp_rows,
                           const I* __restrict__ tsp_node, const uint8_t* __restrict__ tsp_mask,
                           uint4* __restrict__ out, int rs, int ks, int n, int ppr) {
   constexpr int kV = Piece<T>::kValues;
   const int lane = threadIdx.x & 31;
-  const int node = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (node >= n) return;  // the whole warp
-  const int begin = warp_lower_bound(tsp_node, 0, rs, node, lane);
-  const int end = warp_lower_bound(tsp_node, begin, rs, node + 1LL, lane);
-  // every lane runs every loop (the shuffles need the whole warp); lanes
-  // past the row's last piece only pass the slots on
-  for (int c = 0; c < ppr; c += 32) {
-    const int p = c + lane;
-    const bool live = p < ppr;
+  const int gs = group_lanes(ppr), groups = 32 / gs, c = lane & (gs - 1), lead = lane & ~(gs - 1);
+  const unsigned gmask = gs == 32 ? kFull : ((1u << gs) - 1) << lead;
+  const long long warp_item = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * groups;
+  if (warp_item > rs) return;  // the whole warp: its first plan row is past the sentinel
+  // this group's plan row; item rs stands past the last one (it writes the trailing zero rows)
+  const long long item = warp_item + lane / gs;
+  const bool mine = item <= rs, real = item < rs;
+
+  // 1. the row's node, its neighbours' and its first slots: one round trip
+  const long long past = n;  // any node >= n adds to no output row
+  const long long node = real ? static_cast<long long>(tsp_node[item]) : past;
+  const long long prev = mine && item > 0 ? static_cast<long long>(tsp_node[item - 1]) : -1;
+  const long long next = real && item + 1 < rs ? static_cast<long long>(tsp_node[item + 1]) : past;
+  const int slots0 = real && c < ks ? slot_row(tsp_rows, tsp_mask, item * ks + c, g_rows) : -1;
+  const bool starts = mine && node != prev;  // a run begins here (or the sentinel)
+  const bool owner = starts && real && node >= 0 && node < n;
+
+  // 2. the zero rows of the nodes between the previous run's and this one's
+  if (starts) {
+    const long long lo = prev + 1 > 0 ? prev + 1 : 0, hi = node < n ? node : n;
+    for (long long q = lo * ppr + c; q < hi * ppr; q += gs) out[q] = make_uint4(0, 0, 0, 0);
+  }
+
+  // 3. the owned node's run, row by row; every loop is warp-uniform
+  for (int p0 = 0; p0 < ppr; p0 += 32) {  // pieces p0 + c; one pass where ppr <= 32
+    const int p = p0 + c;
+    bool active = owner;
+    long long row = item, after = next;
+    int first = slots0;  // lane c: this row's slot c
     float total[kV] = {};
-    for (int r = begin; r < end; ++r) {
-      float row[kV] = {};
-      for (int k0 = 0; k0 < ks; k0 += 32) {
-        // lane j holds slot k0 + j of plan row r: its g row, or -1 if masked
-        long long src = -1;
-        if (k0 + lane < ks) {
-          const long long at = static_cast<long long>(r) * ks + k0 + lane;
-          if (tsp_mask[at]) {
-            const long long v = static_cast<long long>(tsp_rows[at]);
-            src = v < 0 ? 0 : (v >= g_rows ? g_rows - 1 : v);
+    while (__any_sync(kFull, active)) {
+      const long long slot0 = row * ks;
+      int cur = active ? first : -1;
+      float sum[kV] = {};
+      for (int k0 = 0; k0 < ks; k0 += gs) {
+        // the next round's slot, fetched while this round's loads are in flight
+        const int k = k0 + gs + c;
+        const int ahead = active && k < ks ? slot_row(tsp_rows, tsp_mask, slot0 + k, g_rows) : -1;
+        const unsigned live = (__ballot_sync(kFull, cur >= 0) & gmask) >> lead;
+        const int walk = __reduce_max_sync(kFull, live ? 32 - __clz(live) : 0);  // past every group's last
+        for (int s0 = 0; s0 < walk; s0 += kSlotBatch) {
+          uint4 v[kSlotBatch];
+#pragma unroll
+          for (int b = 0; b < kSlotBatch; ++b) {
+            const int at = __shfl_sync(kFull, cur, lead + ((s0 + b) & (gs - 1)));
+            v[b] = make_uint4(0, 0, 0, 0);
+            if (s0 + b < walk && at >= 0 && p < ppr) v[b] = g[static_cast<long long>(at) * ppr + p];
           }
+#pragma unroll
+          for (int b = 0; b < kSlotBatch; ++b) Piece<T>::add(sum, v[b]);
         }
-        const int count = min(32, ks - k0);
-        for (int j = 0; j < count; ++j) {
-          const long long s = __shfl_sync(kFull, src, j);
-          if (s >= 0 && live) Piece<T>::add(row, g[s * ppr + p]);
-        }
+        cur = ahead;
       }
 #pragma unroll
-      for (int v = 0; v < kV; ++v) total[v] += row[v];
+      for (int e = 0; e < kV; ++e) total[e] += sum[e];
+      // the run goes on while the next row holds the same node
+      active = active && after == node;
+      ++row;
+      first = active && c < ks ? slot_row(tsp_rows, tsp_mask, row * ks + c, g_rows) : -1;
+      after = active && row + 1 < rs ? static_cast<long long>(tsp_node[row + 1]) : past;
     }
-    if (live) out[static_cast<long long>(node) * ppr + p] = Piece<T>::pack(total);
+    if (owner && p < ppr) out[node * ppr + p] = Piece<T>::pack(total);
   }
 }
 
-int grid_for(int n) { return (n + kWarps - 1) / kWarps; }
+// blocks for n work items, `per_warp` to a warp
+int grid_for(long long n, int per_warp) {
+  const long long per_block = static_cast<long long>(kWarps) * per_warp;
+  return static_cast<int>((n + per_block - 1) / per_block);
+}
 
 template <typename T, typename I>
 cudaError_t launch_sorted(const void* g, const void* idx, void* out, int m, int n, int ppr, cudaStream_t st) {
-  sorted_segment_sum_kernel<T, I><<<grid_for(n), kThreads, 0, st>>>(
+  sorted_segment_sum_kernel<T, I><<<grid_for(n, 1), kThreads, 0, st>>>(
       static_cast<const uint4*>(g), static_cast<const I*>(idx), static_cast<uint4*>(out), m, n, ppr);
   return cudaGetLastError();
 }
@@ -183,7 +259,7 @@ cudaError_t launch_sorted(const void* g, const void* idx, void* out, int m, int 
 template <typename T, typename I>
 cudaError_t launch_planned(const void* g, long long g_rows, const void* tsp_rows, const void* tsp_node,
                            const void* tsp_mask, void* out, int rs, int ks, int n, int ppr, cudaStream_t st) {
-  planned_gather_bwd_kernel<T, I><<<grid_for(n), kThreads, 0, st>>>(
+  planned_gather_bwd_kernel<T, I><<<grid_for(rs + 1LL, 32 / group_lanes(ppr)), kThreads, 0, st>>>(
       static_cast<const uint4*>(g), g_rows, static_cast<const I*>(tsp_rows), static_cast<const I*>(tsp_node),
       static_cast<const uint8_t*>(tsp_mask), static_cast<uint4*>(out), rs, ks, n, ppr);
   return cudaGetLastError();

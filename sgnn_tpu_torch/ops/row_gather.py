@@ -36,8 +36,9 @@ The model's gathers are ``torch.autograd.Function``s whose forward is
     fixed order), as JAX's plain ``table[idx]`` transposes to XLA's
     unsorted scatter. The COO layout's sender gathers take it.
 
-The two backwards are CUDA kernels of ``csrc/row_gather_bwd.cu``: one warp
-per output row, sums in index (slot, then plan row) order in f32 from 0,
+The two backwards are CUDA kernels of ``csrc/row_gather_bwd.cu`` (the
+sorted sum: one warp per output row; the planned one: a lane group per run
+of plan rows): sums in index (slot, then plan row) order in f32 from 0,
 rounded once to g's dtype, no atomics, so two launches give the same bits;
 their plain versions (``sorted_segment_sum_reference``,
 ``planned_gather_bwd_reference``) add in the same order. Ids must be
@@ -135,7 +136,8 @@ def _gather(variant: str, table: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
 
 
 def row_gather_loop(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Each warp walks its rows one at a time (``_gather_loop_kernel``)."""
+    """A loop over rows (``_gather_loop_kernel``): each warp walks chunks of
+    rows, a lane group per row, several row loads in flight per lane."""
     return _gather("loop", table, idx)
 
 

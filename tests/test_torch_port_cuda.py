@@ -257,6 +257,32 @@ def test_row_gather_kernels_equal_the_plain_version(cuda, variant, rows, w, idx_
     assert torch.equal(got, rg.row_gather_reference(tbl, idx))
 
 
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ppr,n", [  # 16-byte pieces per row, rows gathered
+    *((ppr, n) for ppr in (1, 6, 8, 16, 32, 40, 64) for n in (5, 1001, 50001)),
+    (8, 300007), (16, 300007), (32, 300007),
+])
+def test_row_gather_loop_lane_groups(cuda, ppr, n, dtype, itype):
+    """The loop kernel's geometry: lane groups of ppr lanes (32 // ppr rows
+    per warp step; ppr 6 leaves two lanes idle), rows wider than a warp in
+    several steps (ppr 40: the second step's lanes 8-31 idle), n a multiple
+    neither of the rows per step nor of a chunk, chunks of 1 to 32 rows (as
+    many rows as spread n evenly over the card's warps), and at 300,007
+    rows several chunks per warp, each with the next chunk's indices
+    fetched ahead."""
+    w = ppr * 16 // torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator().manual_seed(ppr * 7 + n)
+    rows = 301
+    tbl = torch.randn(rows, w, generator=g).to(dtype).to(cuda)
+    idx = torch.randint(-4, rows + 4, (n,), generator=g).to(itype).to(cuda)  # some clamped
+    before = rg.LAUNCHES["loop"]
+    got = rg.row_gather_loop(tbl, idx)
+    assert rg.LAUNCHES["loop"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, rg.row_gather_reference(tbl, idx))
+
+
 def test_row_gather_refuses_grad_on_the_card(cuda):
     """A bare row_gather has no backward; the model's Functions do."""
     tbl = torch.randn(8, 16, device=cuda, requires_grad=True)
@@ -347,7 +373,60 @@ def test_planned_gather_bwd_kernel_matches_plain_and_repeats_bits(cuda, n, edges
     again = rg.planned_gather_bwd(g, *plan, n)
     assert rg.BWD_LAUNCHES["planned"] == before + 2
     torch.cuda.synchronize()
-    _check_bwd_gather(got, rg.planned_gather_bwd_reference(g, *plan, n), dtype)
+    want = rg.planned_gather_bwd_reference(g, *plan, n)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)  # the same adds in the same order, rounded once
+    assert torch.equal(got, again)
+
+
+def _runs_plan(n, runs, ks, seed, masked_rows=0.1, pad_rows=0, past_rows=0):
+    """A transpose plan built directly: node v gets runs[v] plan rows
+    (tsp_node ascending), each with a random prefix of unmasked slots and
+    random unmasked slots past it, a share of rows wholly masked, then
+    pad_rows padded rows at the last node (all masked) and past_rows rows
+    of a node past n (they add to no output row)."""
+    gen = torch.Generator().manual_seed(seed)
+    node = torch.repeat_interleave(torch.arange(n), runs)
+    node = torch.cat([node, torch.full((pad_rows,), n - 1), torch.full((past_rows,), n + 3)])
+    rs = node.numel()
+    g_rows = max(rs * ks, 1)
+    rows = torch.randint(-2, g_rows + 2, (rs, ks), generator=gen)  # some clamped into [0, g_rows)
+    prefix = torch.randint(0, ks + 1, (rs, 1), generator=gen)
+    mask = (torch.arange(ks)[None, :] < prefix) | (torch.rand(rs, ks, generator=gen) < 0.2)
+    mask &= torch.rand(rs, 1, generator=gen) >= masked_rows
+    mask[rs - pad_rows - past_rows: rs - past_rows] = False
+    return g_rows, rows, node, mask
+
+
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("w", [8, 128, 256])  # bf16: 1, 16, 32 pieces per row; f32: 2, 32, 64
+@pytest.mark.parametrize("ks,run_max,pad_rows,past_rows", [
+    (1, 3, 0, 0),  # one slot per plan row
+    (7, 40, 37, 0),  # runs past 32 rows, so past one 32-row step of the scan; padded rows at the end
+    (40, 5, 9, 5),  # slots past one read of 32 (f32) or 16 (bf16) lanes; rows past n
+])
+def test_planned_gather_bwd_runs_and_slots(cuda, ks, run_max, pad_rows, past_rows, w, dtype, itype):
+    """The planned kernel's geometry against the plain version, bit for
+    bit: runs of 0 to run_max plan rows per node (most nodes none, so
+    gaps of zero rows; runs of up to 40 rows, so the group that owns a run
+    sums rows of many warps and blocks, at the edges of the first ones
+    too), wholly masked plan rows, tsp_slots 1, 7 and 40 (more slots than
+    one round of a group's lanes), trailing padded plan rows, rows of a
+    node past n, and lane groups of 1 to 32 lanes (W = 8 bf16 to 256
+    f32, which takes two passes)."""
+    n = 523
+    gen = torch.Generator().manual_seed(ks * 1000 + w)
+    runs = torch.randint(0, run_max + 1, (n,), generator=gen) * (torch.rand(n, generator=gen) < 0.3)
+    runs[[15, 16, 127, 128]] = run_max  # long runs at a warp's and a block's edge
+    g_rows, rows, node, mask = _runs_plan(n, runs, ks, seed=ks + w, pad_rows=pad_rows, past_rows=past_rows)
+    g = torch.randn(g_rows, w, generator=gen).to(dtype).to(cuda)
+    plan = [rows.to(itype).to(cuda), node.to(itype).to(cuda), mask.to(cuda)]
+    got = rg.planned_gather_bwd(g, *plan, n)
+    again = rg.planned_gather_bwd(g, *plan, n)
+    torch.cuda.synchronize()
+    want = rg.planned_gather_bwd_reference(g, *plan, n)
+    assert torch.equal(got, want)
     assert torch.equal(got, again)
 
 

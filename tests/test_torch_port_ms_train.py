@@ -150,6 +150,35 @@ def test_planned_gather_grad_matches_jax(rng, dt):
     assert_gather_grad(got, want, tdt)
 
 
+@pytest.mark.parametrize("tsp_slots", [1, 7, 40])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_planned_gather_grad_matches_jax_at_plan_widths(rng, dt, tsp_slots):
+    """The plan geometries the card tests hold the kernel to, bit for bit,
+    against its plain version: plan slots 1, 7 and 40 (past one read of 16
+    or 32 lanes), a plan row wholly masked, trailing padded plan rows, and
+    nodes with no plan row; the plain version against JAX's VJP."""
+    tdt, jdt = DTYPES[dt]
+    n, w = 60, 16
+    deg = rng.integers(1, tsp_slots + 1, 40)  # out-degree of senders 0..39; 40..59 send nothing
+    snd = np.repeat(np.arange(40), deg).astype(np.int32)
+    coo = tg.CooEdges(snd, rng.integers(0, n, len(snd)).astype(np.int32))
+    de = tg.dense_edges(coo, n, len(np.unique(coo.receivers)) + 2, int(np.bincount(coo.receivers).max()),
+                        tsp_rows_pad=40 + 6, tsp_slots=tsp_slots)
+    de.tsp_mask[3] = False  # a sender's plan row wholly masked: it adds nothing
+    assert (de.tsp_node[-6:] == n - 1).all() and not de.tsp_mask[-6:].any()
+    table = rng.normal(size=(n, w)).astype(np.float32)
+    g = rng.normal(size=(*de.senders.shape, w)).astype(np.float32)
+    plan = (de.tsp_rows, de.tsp_node, de.tsp_mask)
+    _, vjp = jax.vjp(lambda t: jmodel._planned_gather(t, jnp.asarray(de.senders), *map(jnp.asarray, plan), n),
+                     jnp.asarray(table, jdt))
+    (want,) = vjp(jnp.asarray(g, jdt))
+    tab = torch.from_numpy(table).to(tdt).requires_grad_(True)
+    out = rg.planned_gather(tab, torch.from_numpy(de.senders), *map(torch.from_numpy, plan), n)
+    (got,) = torch.autograd.grad(out, tab, torch.from_numpy(g).to(tdt))
+    assert got.dtype == tdt and not got[3].any() and not got[40:].any()
+    assert_gather_grad(got, want, tdt)
+
+
 def test_backward_plain_versions_sum_in_index_order(rng):
     """The plain versions add each run from 0 in index (slot, then plan
     row) order, as the kernels do; checked against a Python loop."""
