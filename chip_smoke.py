@@ -65,12 +65,18 @@ each of which raises on failure:
      checkpoint, a profile over 3 warm steps and peak memory. Then one
      dense f32 and one dense bf16 step at full width on 2 samples against
      the same step on the CPU (STEP_TOL), and both backward kernels against
-     their plain versions at the model's shapes and at ragged sizes, each
-     launched twice and bit-equal, timed beside the index_add_ route and
-     their bound.
+     their plain versions at the model's shapes (dense and COO batches)
+     and at ragged sizes (a run of 5,003 ids, runs across the sorted sum's
+     chunks), each launched twice and bit-identical to its plain version,
+     timed beside the index_add_ route and their bound.
 
 The last lines are the kernel summary (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --only row_gather_bwd
+
+runs phases 1, 2, 4 and the backward kernels' checks and times of 10
+alone and prints them as one ``bwd {...}`` JSON line.
 """
 
 from __future__ import annotations
@@ -198,10 +204,6 @@ MS_RUNS = {"dense_f32": ("auto", "float32"), "dense_bf16": ("auto", "bfloat16"),
 # multi-scale training (phase 10): name -> (ms_dense, compute_dtype, steps)
 MS_TRAIN_RUNS = {"dense_f32": ("auto", "float32", TRAIN_STEPS), "dense_bf16": ("auto", "bfloat16", TRAIN_STEPS),
                  "coo_f32": (False, "float32", 5)}
-# the gathers' backwards against their plain versions: both add in one
-# order from 0 and round once, so they should agree bit for bit; the limits
-# are f32 1e-6 (absolute and relative) and one bf16 step (2^-7 relative)
-BWD_GATHER_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (0.0, 2.0**-7)}  # (atol, rtol)
 
 MODEL = dict(  # the model of both configs
     layers=5,
@@ -1428,48 +1430,84 @@ def ms_card_vs_cpu_step(root: Path, data: Path, name: str, device):
     return out
 
 
+def _long_run_ids(chunk: int):
+    """Ascending ids over 260 nodes with what splits a sorted sum: ids
+    below 0, runs of 0-40 ids (many cross a multiple of ``chunk``), a run
+    of exactly ``chunk`` ids starting at a multiple of it, a run of 5,003
+    ids, ids past the end, and nodes 203-259 with no id."""
+    import torch
+
+    g = torch.Generator().manual_seed(19)
+    runs = torch.randint(0, 41, (200,), generator=g) * (torch.rand(200, generator=g) < 0.7)
+    ids = torch.cat([torch.full((5,), -2), torch.repeat_interleave(torch.arange(200), runs)])
+    ids = torch.cat([ids, torch.full((-len(ids) % chunk,), 200)])  # node 200 up to a multiple of chunk
+    return torch.cat([ids, torch.full((chunk,), 201), torch.full((5003,), 202), torch.full((40,), 267)]), 260
+
+
 def _bwd_gather_cases(data: Path, dev):
     """The backwards' inputs at the model's shapes, from one flattened
-    dense training batch of 16 (f32 and bf16 cotangents), and at ragged
-    sizes: {case: (kind, args)}; kind is "sorted" or "planned"."""
+    training batch of 16 of each layout (dense: the m2m and m2g receivers
+    and plans, f32 and bf16 cotangents; COO: the g2m, m2m and m2g
+    receivers in f32 and the m2m receivers in bf16), the dense m2g
+    receivers without each sample's padded rows, and at ragged sizes:
+    {case: (kind, args)}; kind is "sorted" or "planned"."""
     import numpy as np
     import torch
 
     from sgnn_tpu_torch.data.loader import load_metadata
     from sgnn_tpu_torch.data.static_graph_loader import MultiScaleSampleBatcher
-    from sgnn_tpu_torch.models.multi_scale import flatten_dense_ms_graph
+    from sgnn_tpu_torch.models.multi_scale import flatten_dense_ms_graph, flatten_ms_graph
+    from sgnn_tpu_torch.ops import row_gather as rg
     from sgnn_tpu_torch.physics.multi_scale_graph import CooEdges, dense_edges
     from sgnn_tpu_torch.physics.multi_scale_simulator import graph_to
     from sgnn_tpu_torch.train.train_multi_scale import ms_config_from
 
-    cfg = ms_config(data, ms_dense=True)
-    sim_cfg = ms_config_from(cfg, load_metadata(data))
-    batcher = MultiScaleSampleBatcher(
-        data / "train.npz", cfg.input_sequence_length, cfg.batch_size, ms_cfg=sim_cfg.graph_config,
-        pad_multiple=cfg.pad_multiple, edge_pad_multiple=cfg.edge_pad_multiple, seed=cfg.seed, dense=True,
-        m2m_traversals=cfg.layers)
-    n = cfg.batch_size * batcher.num_nodes
-    graph = flatten_dense_ms_graph(graph_to(next(batcher.epochs())["graph"], dev), batcher.num_nodes)
+    def batch_graph(dense):
+        cfg = ms_config(data, ms_dense=dense)
+        sim_cfg = ms_config_from(cfg, load_metadata(data))
+        batcher = MultiScaleSampleBatcher(
+            data / "train.npz", cfg.input_sequence_length, cfg.batch_size, ms_cfg=sim_cfg.graph_config,
+            pad_multiple=cfg.pad_multiple, edge_pad_multiple=cfg.edge_pad_multiple, seed=cfg.seed, dense=dense,
+            m2m_traversals=cfg.layers)
+        flat = flatten_dense_ms_graph if dense else flatten_ms_graph
+        return flat(graph_to(next(batcher.epochs())["graph"], dev), batcher.num_nodes), batcher.num_nodes, cfg
+
+    graph, nodes, cfg = batch_graph(True)
+    n = cfg.batch_size * nodes
     g = torch.Generator().manual_seed(13)
+
+    def cot(rows, dtype, width=cfg.hidden_dim):
+        return torch.randn(rows, width, generator=g).to(dtype).to(dev)
+
     cases = {}
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for edge_type, de in (("m2m", graph.m2m[0]), ("m2g", graph.m2g)):
-            m = de.recv.numel()
-            cot = torch.randn(m, cfg.hidden_dim, generator=g).to(dtype).to(dev)
-            cases[f"{edge_type}_recv_{name}"] = ("sorted", (cot, de.recv, n))
-            cot = torch.randn(de.senders.numel(), cfg.hidden_dim, generator=g).to(dtype).to(dev)
-            cases[f"{edge_type}_plan_{name}"] = ("planned", (cot, de.tsp_rows, de.tsp_node, de.tsp_mask, n))
+            cases[f"{edge_type}_recv_{name}"] = ("sorted", (cot(de.recv.numel(), dtype), de.recv, n))
+            cases[f"{edge_type}_plan_{name}"] = ("planned", (cot(de.senders.numel(), dtype), de.tsp_rows,
+                                                             de.tsp_node, de.tsp_mask, n))
+        # the m2g receivers without the padded rows, which repeat each sample's last node
+        recv = graph.m2g.recv
+        padded = (recv % nodes == nodes - 1) & (recv == torch.cat([recv[:1] - 1, recv[:-1]]))
+        kept = recv[~padded].contiguous()
+        cases[f"m2g_recv_unpadded_{name}"] = ("sorted", (cot(kept.numel(), dtype), kept, n))
+    coo, _, _ = batch_graph(False)
+    for edge_type, name, dtype in (("g2m", "float32", torch.float32), ("m2m", "float32", torch.float32),
+                                   ("m2g", "float32", torch.float32), ("m2m", "bfloat16", torch.bfloat16)):
+        recv = getattr(coo, edge_type).receivers
+        cases[f"coo_{edge_type}_recv_{name}"] = ("sorted", (cot(recv.numel(), dtype), recv, n))
     rng = np.random.default_rng(17)
+    long_ids, long_n = _long_run_ids(rg.SORTED_CHUNK_MANY)
+    assert rg.sorted_chunk(len(long_ids), long_n) == rg.SORTED_CHUNK_MANY
     for name, dtype, width in (("float32", torch.float32, 4), ("bfloat16", torch.bfloat16, 8)):
         ids = torch.sort(torch.randint(0, 90, (1001,), generator=g)).values  # runs, gaps, rows 90-96 empty
-        cot = torch.randn(1001, width, generator=g).to(dtype).to(dev)
-        cases[f"ragged_recv_{name}"] = ("sorted", (cot, ids.to(dev), 97))
+        cases[f"ragged_recv_{name}"] = ("sorted", (cot(1001, dtype, width), ids.to(dev), 97))
+        cases[f"long_run_recv_{name}"] = ("sorted", (cot(len(long_ids), dtype), long_ids.to(dev), long_n))
         de = dense_edges(CooEdges(rng.integers(0, 301, 3000).astype(np.int32),
                                   rng.integers(0, 301, 3000).astype(np.int32)), 301, 310, 24, tsp_slots=40,
                          tsp_rows_pad=320)  # plan slots past one warp's 32; padded plan rows
-        cot = torch.randn(de.senders.size, width, generator=g).to(dtype).to(dev)
-        cases[f"ragged_plan_{name}"] = ("planned", (cot, *(torch.from_numpy(a).to(dev) for a in
-                                                           (de.tsp_rows, de.tsp_node, de.tsp_mask)), 301))
+        cases[f"ragged_plan_{name}"] = ("planned", (cot(de.senders.size, dtype, width),
+                                                    *(torch.from_numpy(a).to(dev) for a in
+                                                      (de.tsp_rows, de.tsp_node, de.tsp_mask)), 301))
     return cases
 
 
@@ -1496,10 +1534,11 @@ def bwd_gather_bound(kind, args):
 
 def phase_row_gather_bwd(data: Path, dev):
     """Both backward kernels against their plain versions at the model's
-    shapes (f32, bf16) and at ragged sizes, each launched twice and held
-    to bit-equal repeats; then timed (CUDA-graph replay of
-    GATHER_TIMING_ITERS calls) beside their plain versions (host loop),
-    the index_add_ route and the bound."""
+    shapes (dense and COO; f32, bf16) and at ragged sizes, each launched
+    twice and held bit for bit to the plain version and to the other
+    launch; then timed (CUDA-graph replay of GATHER_TIMING_ITERS calls)
+    beside their plain versions (host loop), the index_add_ route and the
+    bound."""
     import torch
 
     from sgnn_tpu_torch.ops import row_gather as rg
@@ -1508,8 +1547,6 @@ def phase_row_gather_bwd(data: Path, dev):
     fns = {"sorted": (rg.sorted_segment_sum, rg.sorted_segment_sum_reference),
            "planned": (rg.planned_gather_bwd, rg.planned_gather_bwd_reference)}
     cases = _bwd_gather_cases(data, dev)
-    worst = {"sorted": 0.0, "planned": 0.0}
-    bit_equal = {"sorted": True, "planned": True}
     for case, (kind, args) in cases.items():
         kern, plain = fns[kind]
         got, again = kern(*args), kern(*args)
@@ -1517,19 +1554,13 @@ def phase_row_gather_bwd(data: Path, dev):
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"{kind} backward {case}: two launches differ")
-        atol, rtol = BWD_GATHER_TOL[str(got.dtype)[6:]]
-        err = (got.float() - want.float()).abs()
-        if got.shape != want.shape or got.dtype != want.dtype or (err > atol + rtol * want.float().abs()).any():
-            raise AssertionError(f"{kind} backward {case}: max |err| {float(err.max()):.3e} beyond atol {atol} "
-                                 f"+ rtol {rtol}")
-        if kind == "planned" and not torch.equal(got, want):
-            raise AssertionError(f"planned backward {case}: not bit-identical to the plain version "
-                                 f"(max |err| {float(err.max()):.3e}); both add in one order")
-        worst[kind] = max(worst[kind], float(err.max()))
-        bit_equal[kind] &= bool(torch.equal(got, want))
-        log(f"kernel {kind} backward {case}: g {list(args[0].shape)} {str(args[0].dtype)[6:]} -> "
-            f"[{args[-1]}, {args[0].shape[1]}]: ok, bit-identical twice, max |err| vs plain {float(err.max()):.3e}, "
-            f"bit-identical to plain: {torch.equal(got, want)}")
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            err = float((got.float() - want.float()).abs().max()) if got.shape == want.shape else math.inf
+            raise AssertionError(f"{kind} backward {case}: not bit-identical to the plain version (max |err| "
+                                 f"{err:.3e}); both add in one order")
+        log(f"kernel {kind} backward {case}: g {list(args[0].shape)} {str(args[0].dtype)[6:]}, "
+            f"{str(args[1].dtype)[6:]} ids -> [{args[-1]}, {args[0].shape[1]}]: ok, bit-identical to the plain "
+            f"version and twice")
 
     def library(kind, args):
         """index_add_ of the cotangent rows at their ids (the plan's
@@ -1544,6 +1575,8 @@ def phase_row_gather_bwd(data: Path, dev):
 
     timed = {}
     for case in ("m2m_recv_float32", "m2g_recv_float32", "m2m_recv_bfloat16", "m2g_recv_bfloat16",
+                 "m2g_recv_unpadded_float32", "m2g_recv_unpadded_bfloat16", "coo_g2m_recv_float32",
+                 "coo_m2m_recv_float32", "coo_m2g_recv_float32", "coo_m2m_recv_bfloat16",
                  "m2m_plan_float32", "m2g_plan_float32", "m2m_plan_bfloat16", "m2g_plan_bfloat16"):
         kind, args = cases[case]
         kern, plain = fns[kind]
@@ -1563,13 +1596,13 @@ def phase_row_gather_bwd(data: Path, dev):
             f"{r['host_loop_ms'] * 1e3:.2f} us), plain {r['plain_ms'] * 1e3:.2f} us, index_add_ route "
             f"{lib_ms * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
             f"{r['bound_share']:.3f} of the kernel's time)")
-    return dict(max_abs_err=worst, bit_identical_to_plain=bit_equal, checked=sorted(cases), timed=timed,
-                tol={k: {"atol": a, "rtol": r} for k, (a, r) in BWD_GATHER_TOL.items()})
+    return dict(checked=sorted(cases), timed=timed)
 
 
 def bwd_gather_summary(bwd, ms_train):
     """The kernel-summary entries of the two backward kernels: times at the
-    dense f32 m2m gathers (the training step's), launches by path."""
+    dense f32 m2m gathers (the training step's; the sorted one's at the COO
+    f32 m2m receivers beside them), launches by path."""
     entries = []
     for kind, name, case, replaces in (
         ("sorted", "sorted_segment_sum", "m2m_recv_float32", "sgnn_tpu/models/multi_scale.py:243"),
@@ -1581,8 +1614,8 @@ def bwd_gather_summary(bwd, ms_train):
             name=name, route="cuda", source="sgnn_tpu_torch/csrc/row_gather_bwd.cu",
             replaces=f"{replaces} (a custom VJP's XLA backward; no Pallas original)",
             launches=by_path["ms_train_dense_f32"], launches_by_path=by_path, dtype=main["dtype"], shape=main["shape"],
-            max_abs_err=bwd["max_abs_err"][kind], bit_identical_to_plain=bwd["bit_identical_to_plain"][kind],
-            tol=bwd["tol"], checked=bwd["checked"], ms=main["ms"], plain_ms=main["plain_ms"],
+            max_abs_err=0.0, tol="bit-identical (torch.equal)", checked=bwd["checked"], ms=main["ms"],
+            plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=main["library_ms"], bytes=main["bytes"],
             bound_share=main["bound_share"], kernel_ms_runs=main["kernel_ms_runs"],
             plain_ms_runs=main["plain_ms_runs"], host_loop_ms=main["host_loop_ms"],
@@ -1590,6 +1623,9 @@ def bwd_gather_summary(bwd, ms_train):
                                              "library_ms", "host_loop_ms")}
                        for c, r in bwd["timed"].items() if r["kind"] == kind},
         ))
+    coo = bwd["timed"]["coo_m2m_recv_float32"]
+    entries[0]["coo_m2m_float32"] = {k: coo[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_share",
+                                                         "library_ms", "host_loop_ms")}
     return entries
 
 
@@ -1624,8 +1660,13 @@ def gather_summary(gather, probe, ms_runs):
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
+    parser.add_argument("--only", choices=["row_gather_bwd"], help="run only this phase (after 1, 2 and 4)")
+    only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card", file=sys.stderr)
         return 1
@@ -1661,6 +1702,10 @@ def main() -> int:
         data = make_dataset(root)
         nodes = TrajectoryLoader(data / "train.npz", pad_multiple=MODEL["pad_multiple"]).num_nodes
         log(f"dataset: built in {time.perf_counter() - t0:.1f} s; {nodes} padded nodes")
+        card = torch.device("cuda", torch.cuda.current_device())
+        if only == "row_gather_bwd":
+            log("bwd " + json.dumps(phase_row_gather_bwd(data, card)))
+            return 0
         train_rows = {CONFIGS[n]["compute_dtype"]: CONFIGS[n]["batch_size"] * nodes for n in CONFIGS}
 
         # 3. kernels against their plain versions, then timed
@@ -1672,7 +1717,6 @@ def main() -> int:
             out, cfg, ckpt = run_training(root, data, name, smi, kind)
             trained[name] = (out, cfg, ckpt)
         checks = {name: train_config(root, data, name, run_name=f"smoke_checks_{name}") for name in CONFIGS}
-        card = torch.device("cuda", torch.cuda.current_device())
         fixed = fixed_batch_check(checks["A"], card)
         torch.cuda.empty_cache()
         step_checks = {}

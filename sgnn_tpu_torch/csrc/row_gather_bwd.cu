@@ -14,16 +14,32 @@
 //          tsp_node[r] == n of (sum over slots k with tsp_mask[r, k] of
 //          g[tsp_rows[r, k]]).
 //
-// Both are deterministic: each output row is summed by one lane group,
-// over its run of ascending ids in index order (the planned one: each plan
+// Both are deterministic: sums in index order (the planned one: each plan
 // row's slots in slot order, then the rows in row order) in f32 from 0,
 // rounded once to g's type and written once, zero where the run is empty.
 // No atomics; two launches on the same inputs give the same bits. The
 // plain versions in sgnn_tpu_torch/ops/row_gather.py add in the same
 // order, so the two agree bit for bit.
 //
-// sorted_segment_sum_kernel: one warp per output row finds its run with
-// two 32-way searches (three probes of the id array at the model's sizes).
+// sorted_segment_sum_kernel: work goes by chunk of id positions (aligned
+// at multiples of the chunk length, which the caller picks by shape: 16
+// where there is at most one id per output row, 128 where there are more),
+// not by output row, so no warp searches. A lane group of pieces_per_row
+// lanes (as the planned kernel's) takes a chunk: it loads kRowBatch ids
+// and cotangent rows per lane in one round and adds them in index order.
+// Where idx[i] != idx[i - 1], position i starts a run: the group writes
+// the zero rows of the nodes between the two ids (flat 16-byte stores; the
+// chunk that holds position m, past the last id, writes those after it)
+// and starts a new f32 sum from 0. A run inside the chunk is written to its
+// node, rounded once. A run that crosses a multiple of the chunk length
+// leaves one f32 partial per chunk instead, each summed in index order
+// (scratch: a head slot for the chunk's first run when it began before the
+// chunk, a tail slot for its last when it goes on past it).
+// sorted_segment_combine_kernel, launched next on the same stream, adds
+// them in chunk order from 0 and writes the node once. So a long run (the
+// COO layout's thousands of padded ids at each sample's last node) is read
+// by many groups at once, and a run inside one chunk keeps the plain
+// index-order sum.
 //
 // planned_gather_bwd_kernel: work goes by plan row, not by output row,
 // so no warp searches. A lane group of pieces_per_row lanes (rounded up to
@@ -53,11 +69,22 @@
 // must move is g's rows that the ids (the plan's unmasked slots) name,
 // the ids (plan) once and the [N, W] output. Both write each output once
 // without atomics and read the ids and the runs' rows through L2. The
-// sorted kernel's warps of rows with an empty run only search and write
-// zeros. The planned kernel was one warp per output row too, two searches
-// and one load in flight per lane: at half the bytes its bf16 case had
-// nothing to hide that latency behind. Now a group's chain is one round
-// trip for the plan, one or two of cotangent loads and its stores.
+// sorted kernel was one warp per output row: two searches (three
+// dependent probes each) before any load, so the warps of the rows with no
+// id (three quarters of them at the dense m2m receivers) only searched and
+// wrote zeros, and one warp walked each run, however long (0.07-0.13 of
+// its bound on an H100 at the COO receivers). Now each cotangent row is
+// loaded once, kRowBatch at a time per lane beside its ids; the crossing
+// runs' f32 partials add a few per cent of scratch traffic. Where most
+// output rows have no id (the dense m2m receivers: three quarters), the
+// zero rows' stores set the time; short chunks give more groups to store
+// them, and long chunks, where ids outnumber rows, leave fewer partials
+// (TMA bulk stores of the zero rows from shared memory were no faster on
+// the H100). The planned kernel was
+// one warp per output row too, two searches and one load in flight per
+// lane: at half the bytes its bf16 case had nothing to hide that latency
+// behind. Now a group's chain is one round trip for the plan, one or two
+// of cotangent loads and its stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +97,8 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSlotBatch = 8;  // cotangent loads in flight per lane (planned)
+constexpr int kRowBatch = 8;   // ids and cotangent rows in flight per lane (sorted; divides the chunk)
+constexpr int kPartialBatch = 16;  // partial rows in flight per lane (the sorted sum's combine)
 // blocks per SM the planned kernel's registers must leave room for (at most
 // 64 registers a thread): one more block of warps in flight than ptxas
 // picks unasked, which was faster in f32 on the H100 and no slower in bf16
@@ -90,6 +119,10 @@ struct Piece<float> {
   __device__ __forceinline__ static uint4 pack(const float* acc) {
     return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]), __float_as_uint(acc[2]),
                       __float_as_uint(acc[3]));
+  }
+  // four f32 sums as values 4q..4q+3 of the rows of out
+  __device__ __forceinline__ static void store_quad(void* out, long long q, const float4 v) {
+    static_cast<float4*>(out)[q] = v;
   }
 };
 
@@ -115,52 +148,146 @@ struct Piece<__nv_bfloat16> {
     return make_uint4(pack2(acc[0], acc[1]), pack2(acc[2], acc[3]), pack2(acc[4], acc[5]),
                       pack2(acc[6], acc[7]));
   }
+  __device__ __forceinline__ static void store_quad(void* out, long long q, const float4 v) {
+    static_cast<uint2*>(out)[q] = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+  }
 };
 
-// The first position p in [lo, hi) with ids[p] >= key, or hi (ids
-// ascending). The 32 lanes probe 32 evenly spaced positions; the ballot
-// narrows the range 32-fold per round. lo and hi stay uniform over the warp.
-template <typename I>
-__device__ __forceinline__ int warp_lower_bound(const I* __restrict__ ids, int lo, int hi, long long key,
-                                                int lane) {
-  while (lo < hi) {
-    const int stride = (hi - lo + 31) / 32;
-    const int pos = lo + lane * stride;
-    const bool ge = pos >= hi || static_cast<long long>(ids[pos]) >= key;
-    const unsigned ballot = __ballot_sync(kFull, ge);
-    if (ballot == 0) {  // every probe < key: past the last one
-      lo += 31 * stride + 1;
-    } else {
-      const int first = __ffs(ballot) - 1;
-      const int new_hi = min(lo + first * stride, hi);
-      if (first > 0) lo += (first - 1) * stride + 1;
-      hi = new_hi;
-    }
+// lanes per group of the sorted and planned kernels: ppr rounded up to a power of two, at most 32
+__host__ __device__ __forceinline__ int group_lanes(int ppr) {
+  int gs = 1;
+  while (gs < ppr && gs < 32) gs <<= 1;
+  return gs;
+}
+
+// the zero rows of the nodes in [lo, hi) clamped into [0, n): flat 16-byte
+// pieces, lane c of a group of gs lanes from piece c on
+__device__ __forceinline__ void zero_rows(uint4* __restrict__ out, long long lo, long long hi, int n, int ppr, int c,
+                                          int gs) {
+  lo = lo > 0 ? lo : 0;
+  hi = hi < n ? hi : n;
+  for (long long q = lo * ppr + c; q < hi * ppr; q += gs) out[q] = make_uint4(0, 0, 0, 0);
+}
+
+// the end of a run's sum in a chunk (piece p of node's row): the node's row,
+// rounded once, or the chunk's head (slot 0) or tail (slot 1) f32 partial
+template <typename T>
+__device__ __forceinline__ void finish_run(uint4* __restrict__ out, float4* __restrict__ partial_row,
+                                           const float* acc, long long node, int slot, int ppr, int p) {
+  constexpr int kQ = Piece<T>::kValues / 4;
+  if (slot < 0) {
+    out[node * ppr + p] = Piece<T>::pack(acc);
+    return;
   }
-  return lo;
+  float4* dst = partial_row + (static_cast<long long>(slot) * ppr + p) * kQ;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
 }
 
 template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads)
 sorted_segment_sum_kernel(const uint4* __restrict__ g, const I* __restrict__ idx, uint4* __restrict__ out,
-                          int m, int n, int ppr) {
+                          float4* __restrict__ partials, int m, int n, int ppr, int chunk_len) {
+  constexpr int kV = Piece<T>::kValues;
   const int lane = threadIdx.x & 31;
-  const int node = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (node >= n) return;  // the whole warp
-  const int begin = warp_lower_bound(idx, 0, m, node, lane);
-  const int end = warp_lower_bound(idx, begin, m, node + 1LL, lane);
-  for (int p = lane; p < ppr; p += 32) {
-    float acc[Piece<T>::kValues] = {};
-    for (int i = begin; i < end; ++i) Piece<T>::add(acc, g[static_cast<long long>(i) * ppr + p]);
-    out[static_cast<long long>(node) * ppr + p] = Piece<T>::pack(acc);
+  const int gs = group_lanes(ppr), c = lane & (gs - 1);
+  const long long last_chunk = m / chunk_len;  // it also holds position m, past the last id
+  const long long chunk = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * (32 / gs) + lane / gs;
+  if (chunk > last_chunk) return;  // no warp-wide operation follows
+  const long long begin = chunk * chunk_len, end = begin + chunk_len < m ? begin + chunk_len : m;
+  float4* partial_row = partials + chunk * 2 * ppr * (kV / 4);  // this chunk's two partial rows
+  // the id before the chunk (a run that goes on into it) and the one after (a run that goes on past it)
+  const long long before = begin > 0 ? static_cast<long long>(idx[begin - 1]) : -1;
+  const bool has_after = end < m;
+  const long long after = has_after ? static_cast<long long>(idx[end]) : 0;
+
+  for (int p0 = 0; p0 < ppr; p0 += 32) {  // pieces p0 + c; one pass where ppr <= 32
+    const int p = p0 + c;
+    const bool piece = p < ppr;
+    long long cur = before;  // the id whose run is being summed
+    bool summing = false;    // acc holds a sum of cur's run
+    bool head = true;        // cur's run began before the chunk
+    float acc[kV] = {};
+    for (long long b0 = begin; b0 < end; b0 += kRowBatch) {
+      I id[kRowBatch];
+      uint4 v[kRowBatch];
+#pragma unroll
+      for (int j = 0; j < kRowBatch; ++j) {  // one round trip: the batch's ids and rows, every load issued
+        const long long at = b0 + j < end ? b0 + j : end - 1;  // past the end: the last again
+        id[j] = idx[at];
+        v[j] = g[at * ppr + (piece ? p : 0)];
+      }
+#pragma unroll
+      for (int j = 0; j < kRowBatch; ++j) {
+        if (b0 + j >= end) continue;
+        const long long node = static_cast<long long>(id[j]);
+        if (node != cur) {  // a run starts here; cur's run ends inside the chunk
+          if (summing && piece && cur >= 0 && cur < n)
+            finish_run<T>(out, partial_row, acc, cur, head ? 0 : -1, ppr, p);
+          if (p0 == 0) zero_rows(out, cur + 1, node, n, ppr, c, gs);
+          cur = node;
+          head = false;
+#pragma unroll
+          for (int e = 0; e < kV; ++e) acc[e] = 0.0f;
+        }
+        summing = true;
+        Piece<T>::add(acc, v[j]);
+      }
+    }
+    const bool goes_on = has_after && after == cur;
+    if (summing && piece && cur >= 0 && cur < n)
+      finish_run<T>(out, partial_row, acc, cur, head ? 0 : (goes_on ? 1 : -1), ppr, p);
+    if (chunk == last_chunk && p0 == 0) zero_rows(out, cur + 1, n, n, ppr, c, gs);
   }
 }
 
-// lanes per group of the planned kernel: ppr rounded up to a power of two, at most 32
-__host__ __device__ __forceinline__ int group_lanes(int ppr) {
-  int gs = 1;
-  while (gs < ppr && gs < 32) gs <<= 1;
-  return gs;
+// The runs that cross a multiple of the chunk: one warp per chunk boundary
+// b * chunk_len (b >= 1). It combines where the run at the boundary began in
+// chunk b - 1 (so it crosses no earlier boundary): it finds the run's last
+// chunk (the boundaries the run crosses, 32 probed at once), then adds
+// chunk b - 1's tail partial and chunks b..last's head partials, in chunk
+// order from 0, and writes the node's row, rounded once. Lanes take the
+// row's float4s.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+sorted_segment_combine_kernel(const float4* __restrict__ partials, const I* __restrict__ idx,
+                              void* __restrict__ out, int m, int n, int row_quads, int chunk_len) {
+  const int lane = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5) + 1;
+  const long long at = b * chunk_len;
+  if (at >= m) return;  // the whole warp
+  const long long node = static_cast<long long>(idx[at]), left = static_cast<long long>(idx[at - 1]);
+  const bool earlier = b > 1 && static_cast<long long>(idx[at - chunk_len - 1]) == node;
+  if (node != left || earlier || node < 0 || node >= n) return;  // the whole warp
+  long long last = b;  // the run's last chunk
+  for (;;) {
+    const long long pos = (last + 1 + lane) * chunk_len;
+    const unsigned on = __ballot_sync(kFull, pos < m && static_cast<long long>(idx[pos]) == node);
+    last += __popc(on);  // the ids ascend: the boundaries the run crosses come first
+    if (on != kFull) break;
+  }
+  const long long pieces = last - b + 2;  // chunk b - 1's tail, then chunks b..last's heads
+  for (int q = lane; q < row_quads; q += 32) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (long long k0 = 0; k0 < pieces; k0 += kPartialBatch) {
+      float4 v[kPartialBatch];
+#pragma unroll
+      for (int j = 0; j < kPartialBatch; ++j) {  // every load issued (past the last piece: the last again)
+        const long long k = k0 + j < pieces ? k0 + j : pieces - 1;
+        v[j] = partials[(k == 0 ? (b - 1) * 2 + 1 : (b - 1 + k) * 2) * row_quads + q];
+      }
+      // past the last piece each adds +0.0, which leaves a sum begun at +0.0 unchanged bit for bit
+#pragma unroll
+      for (int j = 0; j < kPartialBatch; ++j) {
+        const bool keep = k0 + j < pieces;
+        acc.x += keep ? v[j].x : 0.0f;
+        acc.y += keep ? v[j].y : 0.0f;
+        acc.z += keep ? v[j].z : 0.0f;
+        acc.w += keep ? v[j].w : 0.0f;
+      }
+    }
+    Piece<T>::store_quad(out, node * row_quads + q, acc);
+  }
 }
 
 // plan slot `at`'s g row, clamped into [0, g_rows), or -1 if masked
@@ -250,9 +377,16 @@ int grid_for(long long n, int per_warp) {
 }
 
 template <typename T, typename I>
-cudaError_t launch_sorted(const void* g, const void* idx, void* out, int m, int n, int ppr, cudaStream_t st) {
-  sorted_segment_sum_kernel<T, I><<<grid_for(n, 1), kThreads, 0, st>>>(
-      static_cast<const uint4*>(g), static_cast<const I*>(idx), static_cast<uint4*>(out), m, n, ppr);
+cudaError_t launch_sorted(const void* g, const void* idx, void* out, void* partials, int m, int n, int ppr,
+                          int chunk, cudaStream_t st) {
+  sorted_segment_sum_kernel<T, I><<<grid_for(m / chunk + 1LL, 32 / group_lanes(ppr)), kThreads, 0, st>>>(
+      static_cast<const uint4*>(g), static_cast<const I*>(idx), static_cast<uint4*>(out),
+      static_cast<float4*>(partials), m, n, ppr, chunk);
+  const cudaError_t err = cudaGetLastError();
+  const long long boundaries = m > 0 ? (m - 1LL) / chunk : 0;
+  if (err != cudaSuccess || boundaries == 0) return err;
+  sorted_segment_combine_kernel<T, I><<<grid_for(boundaries, 1), kThreads, 0, st>>>(
+      static_cast<const float4*>(partials), static_cast<const I*>(idx), out, m, n, ppr * Piece<T>::kValues / 4, chunk);
   return cudaGetLastError();
 }
 
@@ -274,31 +408,34 @@ int pieces_per_row(int W, int dtype) {
 
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-constexpr long long kMaxCount = (1LL << 31) - 64;  // int positions, with room for the search's probes
+constexpr long long kMaxCount = (1LL << 31) - 64;  // int positions and nodes
 
 }  // namespace
 
 extern "C" {
 
-// g [m, W], idx [m] ascending, out [n, W]; dtype 0 = float32, 1 = bfloat16
-// (g and out), idx_dtype 0 = int32, 1 = int64. Returns the cudaError_t of
-// the launch (0 on success).
-int sgnn_sorted_segment_sum(const void* g, const void* idx, void* out, long long m, long long n, int W, int dtype,
-                            int idx_dtype, void* stream) {
+// g [m, W], idx [m] ascending, out [n, W]; chunk: id positions per chunk
+// (a multiple of 8, at most 1024); partials: f32 scratch of
+// (m / chunk + 1) * 2 * W values; dtype 0 = float32, 1 = bfloat16 (g and
+// out), idx_dtype 0 = int32, 1 = int64. Two launches on `stream`; returns
+// their cudaError_t (0 on success).
+int sgnn_sorted_segment_sum(const void* g, const void* idx, void* out, void* partials, long long m, long long n,
+                            int W, int chunk, int dtype, int idx_dtype, void* stream) {
   const int ppr = pieces_per_row(W, dtype);
-  if (ppr < 0 || m < 0 || n < 0 || m > kMaxCount || n > kMaxCount || !aligned(g) || !aligned(out) ||
-      (dtype != 0 && dtype != 1) || (idx_dtype != 0 && idx_dtype != 1))
+  if (ppr < 0 || m < 0 || n < 0 || m > kMaxCount || n > kMaxCount || chunk < kRowBatch || chunk > 1024 ||
+      chunk % kRowBatch || !aligned(g) || !aligned(out) || !aligned(partials) || (dtype != 0 && dtype != 1) ||
+      (idx_dtype != 0 && idx_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
   auto st = static_cast<cudaStream_t>(stream);
   const int mi = static_cast<int>(m), ni = static_cast<int>(n);
   cudaError_t err;
   if (dtype == 0)
-    err = idx_dtype == 0 ? launch_sorted<float, int32_t>(g, idx, out, mi, ni, ppr, st)
-                         : launch_sorted<float, int64_t>(g, idx, out, mi, ni, ppr, st);
+    err = idx_dtype == 0 ? launch_sorted<float, int32_t>(g, idx, out, partials, mi, ni, ppr, chunk, st)
+                         : launch_sorted<float, int64_t>(g, idx, out, partials, mi, ni, ppr, chunk, st);
   else
-    err = idx_dtype == 0 ? launch_sorted<__nv_bfloat16, int32_t>(g, idx, out, mi, ni, ppr, st)
-                         : launch_sorted<__nv_bfloat16, int64_t>(g, idx, out, mi, ni, ppr, st);
+    err = idx_dtype == 0 ? launch_sorted<__nv_bfloat16, int32_t>(g, idx, out, partials, mi, ni, ppr, chunk, st)
+                         : launch_sorted<__nv_bfloat16, int64_t>(g, idx, out, partials, mi, ni, ppr, chunk, st);
   return static_cast<int>(err);
 }
 

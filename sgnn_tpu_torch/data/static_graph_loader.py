@@ -118,7 +118,7 @@ def _stack_graphs(graphs):
 
 def check_sorted_ids(graph, num_nodes: int) -> None:
     """Raise unless a batched graph ([B, ...] leaves) keeps every id the
-    sorted backward kernels search ascending once the batch is flattened:
+    sorted backward kernels take ascending once the batch is flattened:
     per sample, in ``[0, num_nodes)`` and non-decreasing (dense ``recv`` and
     ``tsp_node``; COO receivers with padding at the last node, as
     ``flatten_ms_graph`` re-points it)."""

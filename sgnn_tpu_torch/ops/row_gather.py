@@ -36,15 +36,25 @@ The model's gathers are ``torch.autograd.Function``s whose forward is
     fixed order), as JAX's plain ``table[idx]`` transposes to XLA's
     unsorted scatter. The COO layout's sender gathers take it.
 
-The two backwards are CUDA kernels of ``csrc/row_gather_bwd.cu`` (the
-sorted sum: one warp per output row; the planned one: a lane group per run
-of plan rows): sums in index (slot, then plan row) order in f32 from 0,
-rounded once to g's dtype, no atomics, so two launches give the same bits;
-their plain versions (``sorted_segment_sum_reference``,
-``planned_gather_bwd_reference``) add in the same order. Ids must be
-ascending (``recv``, ``tsp_node`` and flattened COO receivers are by
-construction; the training batcher checks it on the host, the kernels do
-not). ``BWD_LAUNCHES["sorted"|"planned"]`` counts their launches.
+The two backwards are CUDA kernels of ``csrc/row_gather_bwd.cu``, with no
+atomics, so two launches give the same bits, and their plain versions
+(``sorted_segment_sum_reference``, ``planned_gather_bwd_reference``) add in
+the kernels' order:
+
+  * the sorted sum goes by chunk of id positions (``sorted_chunk``: 16 or
+    128 by shape; a lane group per chunk, no search): a run of ids inside
+    one chunk is summed in index order in f32 from 0 and rounded once to
+    g's dtype; a run that crosses a multiple of the chunk is summed per
+    chunk in index order, and the chunks' f32 partials are added in chunk
+    order from 0 (a second small launch) and rounded once;
+  * the planned one goes by plan row (a lane group per run of plan rows):
+    slots in slot order, then plan rows in row order, f32 from 0, rounded
+    once.
+
+Ids must be ascending (``recv``, ``tsp_node`` and flattened COO receivers
+are by construction; the training batcher checks it on the host, the
+kernels do not). ``BWD_LAUNCHES["sorted"|"planned"]`` counts the wrappers'
+launches, one per call.
 """
 from __future__ import annotations
 
@@ -162,6 +172,16 @@ BWD_KERNEL = "row_gather_bwd"
 # Kernel launches since the last reset, per backward (plain counters, as LAUNCHES)
 BWD_LAUNCHES = {"sorted": 0, "planned": 0}
 _MAX_COUNT = 2**31 - 64  # int positions in the kernels
+# id positions per chunk of the sorted sum: at most one id per output row, or more
+SORTED_CHUNK_FEW, SORTED_CHUNK_MANY = 16, 128
+
+
+def sorted_chunk(num_ids: int, num_nodes: int) -> int:
+    """Id positions per chunk of ``sorted_segment_sum``, by shape alone:
+    short chunks where there is at most one id per output row (more lane
+    groups for the zero rows of the nodes with no id), long ones where
+    there are more (fewer runs cut, fewer partials to combine)."""
+    return SORTED_CHUNK_FEW if num_ids <= num_nodes else SORTED_CHUNK_MANY
 
 
 def _ordered_segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -181,8 +201,16 @@ def _ordered_segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: in
 
 
 def sorted_segment_sum_reference(g: torch.Tensor, idx: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    """The plain version of ``sorted_segment_sum``."""
-    return _ordered_segment_sum(g.float(), idx, num_nodes).to(g.dtype)
+    """The plain version of ``sorted_segment_sum``: each run of ids cut at
+    the multiples of ``sorted_chunk`` into pieces, each piece summed in
+    index order from 0, then a run's pieces in chunk order from 0 (a run
+    inside one chunk: its index-order sum, 0 + s adding no bit)."""
+    ids = idx.reshape(-1).long()
+    starts = torch.ones_like(ids, dtype=torch.bool)
+    pos = torch.arange(ids.numel(), device=ids.device)
+    starts[1:] = (ids[1:] != ids[:-1]) | (pos[1:] % sorted_chunk(ids.numel(), num_nodes) == 0)
+    pieces = _ordered_segment_sum(g.float(), torch.cumsum(starts, 0) - 1, int(starts.sum()))
+    return _ordered_segment_sum(pieces, ids[starts], num_nodes).to(g.dtype)
 
 
 def planned_gather_bwd_reference(
@@ -227,7 +255,7 @@ def _launch_bwd(kind: str, fn_name: str, device: torch.device, *args) -> None:
     lib = build.load(BWD_KERNEL)
     if lib.sgnn_sorted_segment_sum.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sgnn_sorted_segment_sum.argtypes = [p, p, p, ll, ll, i, i, i, p]
+        lib.sgnn_sorted_segment_sum.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
         lib.sgnn_planned_gather_bwd.argtypes = [p, ll, p, p, p, p, ll, ll, ll, i, i, i, p]
         for fn in (lib.sgnn_sorted_segment_sum, lib.sgnn_planned_gather_bwd):
             fn.restype = ctypes.c_int
@@ -251,8 +279,12 @@ def sorted_segment_sum(g: torch.Tensor, idx: torch.Tensor, num_nodes: int) -> to
     if g.device.type == "cpu":
         return sorted_segment_sum_reference(g, idx, num_nodes)
     out = torch.empty((num_nodes, g.shape[1]), dtype=g.dtype, device=g.device)
+    chunk = sorted_chunk(g.shape[0], num_nodes)
+    # f32 scratch: a head and a tail partial row per chunk, for the runs that cross chunks
+    partials = torch.empty(((g.shape[0] // chunk + 1) * 2 * g.shape[1],), dtype=torch.float32, device=g.device)
     _launch_bwd("sorted", "sgnn_sorted_segment_sum", g.device, g.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                g.shape[0], num_nodes, g.shape[1], _DTYPE_CODE[g.dtype], _INDEX_CODE[idx.dtype])
+                partials.data_ptr(), g.shape[0], num_nodes, g.shape[1], chunk, _DTYPE_CODE[g.dtype],
+                _INDEX_CODE[idx.dtype])
     return out
 
 

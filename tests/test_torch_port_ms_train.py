@@ -202,6 +202,166 @@ def test_backward_plain_versions_sum_in_index_order(rng):
     assert torch.equal(got, want)
 
 
+def _coo_like_ids(rng, samples=3, n=40, pad=150):
+    """Flattened COO-like receivers: per sample, runs of 0-20 ids over its
+    first n - 1 nodes, then `pad` padded ids at its last node (as
+    ``flatten_ms_graph`` re-points them), so runs cross chunks and one
+    spans several."""
+    out = []
+    for s in range(samples):
+        runs = rng.integers(0, 21, n - 1) * (rng.random(n - 1) < 0.8)
+        out += [np.repeat(np.arange(n - 1), runs) + s * n, np.full(pad, s * n + n - 1)]
+    return np.concatenate(out), samples * n
+
+
+def _chunk_edge_ids(chunk, n):
+    """Ids below 0, a run that exactly fills a chunk, a run ending on a
+    chunk boundary, runs of one id, a run over several chunks, ids past
+    the end (n) and nodes 10 to n - 1 with no id; 5 * chunk + 3 positions."""
+    return np.concatenate([np.full(3, -4), np.full(chunk - 3, 0), np.full(chunk, 2), np.full(chunk - 5, 3),
+                           np.arange(4, 9), np.full(2 * chunk - 4, 9), np.full(7, n + 1)])
+
+
+def _emulate_sorted_kernels(g: torch.Tensor, ids: np.ndarray, n: int, chunk: int) -> torch.Tensor:
+    """``csrc/row_gather_bwd.cu``'s two sorted kernels, group by group, in
+    f32 (one group's lanes hold one row's pieces): sorted_segment_sum_kernel
+    (a group per chunk of `chunk` positions: runs inside the chunk to their
+    node, the zero rows before each run start and, in the chunk that holds
+    position m, after the last id; a head or tail f32 partial for a run
+    that crosses the chunk's edge), then sorted_segment_combine_kernel (a
+    warp per chunk boundary: where the run there crosses no earlier
+    boundary, its partials in chunk order from 0). Each row must be
+    written once and each partial read once."""
+    m, w = g.shape
+    data = g.float()
+    ids = [int(v) for v in ids]
+    out = torch.full((n, w), float("nan"))
+    writes = np.zeros(n, int)
+    partials, used = {}, []
+    for ch in range(m // chunk + 1):
+        begin, end = ch * chunk, min(ch * chunk + chunk, m)
+        cur, summing, head, acc = ids[begin - 1] if begin else -1, False, True, torch.zeros(w)
+        for i in range(begin, end + 1):  # i == end: the chunk's last run ends
+            if i < end and ids[i] == cur:
+                summing, acc = True, acc + data[i]
+                continue
+            goes_on = i == end and end < m and ids[end] == cur
+            if summing and 0 <= cur < n:
+                if head or goes_on:
+                    partials[(ch, 0 if head else 1)] = acc
+                else:
+                    out[cur], writes[cur] = acc.to(g.dtype).float(), writes[cur] + 1
+            if i < end:
+                out[max(cur + 1, 0):max(min(ids[i], n), 0)] = 0.0
+                writes[max(cur + 1, 0):max(min(ids[i], n), 0)] += 1
+                cur, summing, head, acc = ids[i], True, False, torch.zeros(w) + data[i]
+        if ch == m // chunk:
+            out[max(cur + 1, 0):] = 0.0
+            writes[max(cur + 1, 0):] += 1
+    for b in range(1, (m - 1) // chunk + 1 if m else 0):
+        at, node = b * chunk, ids[b * chunk]
+        if node != ids[at - 1] or (b > 1 and ids[at - chunk - 1] == node) or not 0 <= node < n:
+            continue
+        last = b
+        while (last + 1) * chunk < m and ids[(last + 1) * chunk] == node:
+            last += 1
+        keys = [(b - 1, 1)] + [(c, 0) for c in range(b, last + 1)]
+        acc = torch.zeros(w)
+        for key in keys:
+            acc = acc + partials[key]
+        used += keys
+        out[node], writes[node] = acc.to(g.dtype).float(), writes[node] + 1
+    assert (writes == 1).all(), np.flatnonzero(writes != 1)
+    assert sorted(used) == sorted(partials)
+    return out.to(g.dtype)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", ["coo_like", "chunk_edges_many", "chunk_edges_few", "few", "many", "one_id",
+                                  "none"])
+def test_sorted_kernels_emulated_group_by_group_equal_the_plain_version(rng, case, dt):
+    """The sorted kernels' index logic, emulated group by group, against
+    ``sorted_segment_sum_reference``, bit for bit, at both chunk lengths
+    (more ids than nodes: 128; at most one per node: 16): COO-like
+    receivers with a padded run over several chunks, runs that fill a
+    chunk or end on its edge, ids outside [0, N), a single id, no id."""
+    if case == "coo_like":
+        ids, n = _coo_like_ids(rng)
+    elif case == "chunk_edges_many":
+        ids, n = _chunk_edge_ids(rg.SORTED_CHUNK_MANY, 30), 30
+    elif case == "chunk_edges_few":
+        ids, n = _chunk_edge_ids(rg.SORTED_CHUNK_FEW, 90), 90
+    elif case in ("few", "many"):
+        n = 400 if case == "few" else 47
+        ids = np.sort(rng.integers(-2, 103, 390 if case == "few" else 600))  # runs of 1-10 ids, gaps
+    else:
+        ids, n = np.arange(1 if case == "one_id" else 0) + 5, 9
+    chunk = rg.sorted_chunk(len(ids), n)
+    assert chunk == {"coo_like": rg.SORTED_CHUNK_MANY, "chunk_edges_many": rg.SORTED_CHUNK_MANY,
+                     "many": rg.SORTED_CHUNK_MANY}.get(case, rg.SORTED_CHUNK_FEW)
+    g = torch.from_numpy(rng.normal(size=(len(ids), 8)).astype(np.float32)).to(DTYPES[dt][0])
+    want = rg.sorted_segment_sum_reference(g, torch.from_numpy(ids), n)
+    assert torch.equal(_emulate_sorted_kernels(g, ids, n, chunk), want)
+
+
+def test_sorted_plain_version_keeps_the_index_order_sum_inside_a_chunk(rng):
+    """A run inside one chunk gives the bits of its index-order sum from 0
+    (the plain version before the chunk split); a run across chunks adds
+    its chunks' sums in chunk order, within f32 rounding of that sum."""
+    ids, n = _coo_like_ids(rng)
+    g = torch.from_numpy(rng.normal(size=(len(ids), 8)).astype(np.float32))
+    old = rg._ordered_segment_sum(g, torch.from_numpy(ids), n)
+    got = rg.sorted_segment_sum_reference(g, torch.from_numpy(ids), n)
+    at = [np.flatnonzero(ids == v) // rg.sorted_chunk(len(ids), n) for v in range(n)]
+    inside = np.array([len(c) == 0 or c[0] == c[-1] for c in at])
+    assert (~inside).sum() > 0 and inside.sum() > n // 2
+    assert torch.equal(got[inside], old[inside])
+    torch.testing.assert_close(got, old, rtol=1e-6, atol=1e-5)
+    short = np.sort(np.concatenate([np.arange(10), np.arange(10)]))  # 20 ids: one chunk
+    gs = g[:20]
+    assert torch.equal(rg.sorted_segment_sum_reference(gs, torch.from_numpy(short), 12),
+                       rg._ordered_segment_sum(gs, torch.from_numpy(short), 12))
+
+
+# sha256 (first 16 hex digits) of planned_gather_bwd_reference's output on
+# the inputs below, from the plain version as it was before the sorted
+# sum's chunk split: its order and bits must not move
+PLANNED_BITS = {"f32": "b1555ceba1039b82", "bf16": "68e290a2e6116f18"}
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_planned_plain_version_keeps_its_bits(dt):
+    import hashlib
+
+    rng = np.random.default_rng(23)
+    n, w = 90, 16
+    coo = tg.CooEdges(rng.integers(0, n, 700).astype(np.int32), rng.integers(0, n, 700).astype(np.int32))
+    de = tg.dense_edges(coo, n, len(np.unique(coo.receivers)) + 4, int(np.bincount(coo.receivers).max()),
+                        tsp_rows_pad=len(np.unique(coo.senders)) + 6)
+    g = torch.from_numpy(rng.normal(size=(de.senders.size, w)).astype(np.float32)).to(DTYPES[dt][0])
+    got = rg.planned_gather_bwd_reference(g, *map(torch.from_numpy, (de.tsp_rows, de.tsp_node, de.tsp_mask)), n)
+    bits = got.view(torch.int16 if dt == "bf16" else torch.int32).numpy().tobytes()
+    assert hashlib.sha256(bits).hexdigest()[:16] == PLANNED_BITS[dt]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_sorted_gather_grad_matches_jax_at_coo_shape(rng, dt):
+    """Flattened COO-like receivers of 3 samples with a padded run of 150
+    ids at each sample's last node (several chunks): the backward against
+    JAX's VJP of ``_sorted_gather`` (bf16: against JAX's f32 VJP of the
+    same bf16 values, rounded once), at the tolerances above."""
+    tdt, jdt = DTYPES[dt]
+    ids, n = _coo_like_ids(rng)
+    ids = ids.astype(np.int32)
+    table = rng.normal(size=(n, 8)).astype(np.float32)
+    g = np.array(jnp.asarray(rng.normal(size=(len(ids), 8)), jdt).astype(jnp.float32))
+    want = _jax_sorted_vjp(table, ids, g, jnp.float32).astype(jdt)
+    tab = torch.from_numpy(table).to(tdt).requires_grad_(True)
+    (got,) = torch.autograd.grad(rg.sorted_gather(tab, torch.from_numpy(ids), n), tab, torch.from_numpy(g).to(tdt))
+    assert got.dtype == tdt
+    assert_gather_grad(got, want, tdt)
+
+
 def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     g = torch.zeros(4, 8)
     idx = torch.zeros(4, dtype=torch.int32)
