@@ -34,10 +34,16 @@ each of which raises on failure:
      plain versions (loss, every gradient, the parameters after Adam);
      and on B's graph sym_gather's backward must match index_select's;
   6. rollout: ``predict`` in rollout mode from the checkpoint each
-     training run wrote (A in f32, B in bf16), counting the forward
-     kernel's launches; each of the f32 run's first steps is held against
-     the same step on the CPU from the card's window, and a warm rollout
-     is profiled;
+     training run wrote (A in f32, B in bf16), its step captured in a
+     CUDA graph and replayed (the port of ``make_jit_rollout``), counting
+     the forward kernel's launches (replays add what their capture
+     recorded); each of the f32 run's first steps is held against the
+     same step on the CPU from the card's window; then on the warm
+     trajectory the captured route against the eager one in the same call
+     (``compare_routes``): equal with torch.equal, the launch counts of
+     both, wall ms/step, capture time, graph launches per step, peak
+     memory and a profile of each, and one warm eager step under
+     sync-debug mode "error";
   7. row gather: the three row-gather kernels against their plain
      version, bit for bit, at the probe's shape (f32, bf16; int32), at
      the multi-scale model's sender gathers (f32, bf16; int64, the
@@ -55,8 +61,10 @@ each of which raises on failure:
      f32; each run must launch ``row_gather`` exactly 2 x (blocks) per
      step; the f32 runs' first steps are held against the same rollout
      on the CPU, the bf16 run's first forward against the CPU's within
-     twice the CPU's own bf16-vs-f32 gap, and a warm rollout of each is
-     profiled;
+     twice the CPU's own bf16-vs-f32 gap; the rollouts are captured as in
+     6, and each run's captured route is held against its eager one as
+     there (COO to ROLLOUT_TOL over its first steps: its aggregation adds
+     with float atomics);
  10. multi-scale training: ``train_multi_scale.main`` in train mode at the
      same values, dense f32 and dense bf16 for 20 steps and COO f32 for 5,
      each launching the take kernel 2 x (blocks) per step and per
@@ -70,7 +78,8 @@ each of which raises on failure:
      chunks), each launched twice and bit-identical to its plain version,
      timed beside the index_add_ route and their bound.
 
-The last lines are the kernel summary (JSON), the nvidia-smi line, and
+The last lines are the rollout routes of 6 and 9 (one ``routes {...}``
+JSON line), the kernel summary (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only row_gather_bwd
@@ -184,6 +193,9 @@ STEP_TOL = {
 TRAIN_STEPS, SAVE_EVERY, LOG_EVERY = 20, 10, 10
 PROFILE_STEPS = 3
 PROFILE_ROLLOUT_STEPS = 10
+# the CUDA API calls (cuda* and cu*) by which the host launches work, counted in profiles
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cudaMemcpyAsync")
 FIXED_BATCH_STEPS = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # non-tensor f32; bf16 tensor
@@ -695,6 +707,8 @@ def device_profile(prof, steps, wall_ms_step):
         "device_ms_per_step": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms_step,
         "kernels_per_step": sum(e.count for e in kernels) / steps,
+        # what the host asked of the runtime: kernel and graph launches, copies
+        "host_calls_per_step": {e.key: e.count / steps for e in prof.key_averages() if e.key in HOST_LAUNCH_CALLS},
         "top_kernels_us_per_step": {e.key[:60]: e.self_device_time_total / steps for e in top},
     }
 
@@ -861,6 +875,8 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
 
     from sgnn_tpu_torch.data.loader import TrajectoryLoader, load_metadata
     from sgnn_tpu_torch.ops import edge_block as eb
+    from sgnn_tpu_torch.physics.rollout import rollout, rollout_step
+    from sgnn_tpu_torch.physics.simulator import make_norm_stats, simulator_init
     from sgnn_tpu_torch.train.checkpoint import CheckpointManager
     from sgnn_tpu_torch.train.train import predict, simulator_config_from
 
@@ -882,7 +898,7 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
     torch.cuda.reset_peak_memory_stats()
     eb.LAUNCHES = eb.BWD_LAUNCHES = 0
     reset_fwd_variant_launches()
-    summary = predict(cfg)  # the port's entry point, on CUDA by default
+    summary = predict(cfg)  # the port's entry point, on CUDA by default: its step captured and replayed
     launches, bwd_launches = eb.LAUNCHES, eb.BWD_LAUNCHES
     variants = dict(eb.FWD_VARIANT_LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
@@ -919,6 +935,7 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
         mean_loss=summary["total"], checkpoint=model_file, device=kind, nvidia_smi=smi,
     )
 
+    state, _ = CheckpointManager(Path(cfg.model_path) / cfg.run_name).restore(model_file)
     if compute_dtype == "float32":
         # each of the first steps on the CPU through the plain versions, from
         # the card's own window: a 'one_step' rollout whose ground truth is the
@@ -926,10 +943,6 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
         # free-running comparison would let a 1e-6 drift flip a pair at the
         # radius and move a particle by far more than rounding; its error is
         # reported, not held.
-        from sgnn_tpu_torch.physics.rollout import rollout
-        from sgnn_tpu_torch.physics.simulator import make_norm_stats, simulator_init
-
-        state, _ = CheckpointManager(Path(cfg.model_path) / cfg.run_name).restore(model_file)
         cpu_sim = simulator_init(sim_cfg, device="cpu")
         cpu_sim.load_state_dict(state["params"], strict=True)
         cpu_stats = make_norm_stats(metadata, cfg.noise_std, device="cpu")
@@ -957,15 +970,23 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
         result["cpu_check"] = dict(steps=ROLLOUT_CHECK_STEPS, from_card_windows=True, max_abs_err=errs,
                                    atol=atol, rtol=rtol)
 
-        gpu_sim = simulator_init(sim_cfg)
-        gpu_sim.load_state_dict(state["params"], strict=True)
-        stats = make_norm_stats(metadata, cfg.noise_std, device=gpu_sim.device)
-        t_end = cfg.input_sequence_length + PROFILE_ROLLOUT_STEPS
-        result["profile"] = profile_rollout(
-            lambda: rollout(gpu_sim, sim_cfg, stats, traj["positions"][:, :t_end], traj["particle_type"],
-                            traj["strains"][:t_end], traj["node_mask"]),
-            ms_step,
-        )
+    # the captured route against the eager one on the warm trajectory, on a
+    # simulator no rollout has used yet (its first captured call captures)
+    gpu_sim = simulator_init(sim_cfg)
+    gpu_sim.load_state_dict(state["params"], strict=True)
+    stats = make_norm_stats(metadata, cfg.noise_std, device=gpu_sim.device)
+    warm = list(loader)[-1]
+    s = cfg.input_sequence_length
+    step_inputs = first_step_inputs(warm, s, gpu_sim.device,
+                                    node_mask=torch.as_tensor(warm["node_mask"], device=gpu_sim.device))
+    result["routes"] = compare_routes(
+        f"rollout {compute_dtype}", gpu_sim,
+        lambda capture, t_end=None: rollout(gpu_sim, sim_cfg, stats, warm["positions"][:, :t_end],
+                                            warm["particle_type"], warm["strains"][:t_end], warm["node_mask"],
+                                            inference_mode=cfg.inference_mode, capture=capture),
+        steps=warm["positions"].shape[1] - s, exact=True, launches=lambda: eb.LAUNCHES, per_step=cfg.layers,
+        step=rollout_step(gpu_sim, sim_cfg, stats, cfg.inference_mode), step_inputs=step_inputs,
+    )
     log("rollout " + json.dumps(result))
     return result
 
@@ -983,6 +1004,118 @@ def profile_rollout(run, wall_ms_step, steps=PROFILE_ROLLOUT_STEPS):
         run()
         torch.cuda.synchronize()
     return dict(wall_ms_per_step=wall_ms_step, **device_profile(prof, steps, wall_ms_step))
+
+
+def first_step_inputs(traj, s, device, **fixed):
+    """The first rollout step's inputs from trajectory ``traj`` (window length
+    ``s``) on ``device``: (window, ground-truth positions, strain), and the
+    fixed ones (particle types, the erosional mask and ``fixed``)."""
+    import torch
+
+    types = torch.as_tensor(traj["particle_type"], device=device)
+    args = tuple(torch.as_tensor(a, device=device)
+                 for a in (traj["positions"][:, :s], traj["positions"][:, s], traj["strains"][s]))
+    return args, dict(particle_types=types, erosional=(types == -1)[:, None], **fixed)
+
+
+def no_sync_step(step, args, fixed):
+    """One warm eager rollout step on the card under sync-debug mode
+    "error": any host sync in it raises."""
+    import torch
+
+    with torch.inference_mode():
+        step(*args, **fixed)  # warm: the search's constants and every cache made
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(*args, **fixed)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def compare_routes(where, sim, run, steps, exact, launches, per_step, step, step_inputs):
+    """The captured rollout route against the eager one on one warm
+    trajectory of ``steps`` steps; ``run(capture, t_end=None)`` rolls it
+    out on ``sim``, a simulator no rollout has used (so that its first
+    captured call captures). Calls in turns: captured (the warm-up step,
+    the capture and the replays), eager, captured, captured, eager. Per
+    route: wall ms/step (host clock around a call that ends in a sync),
+    peak memory, the kernel counter ``launches()`` (``per_step`` per step
+    on both routes; on the captured one added by the replays), device busy
+    and idle share and host launch calls per step from a profile of
+    PROFILE_ROLLOUT_STEPS steps; the capture's host time and graph launches
+    per step. Captured equals eager with torch.equal (``exact``), else to
+    ROLLOUT_TOL over the first ROLLOUT_CHECK_STEPS steps. Last, one warm
+    eager ``step`` on ``step_inputs`` under sync-debug mode "error"."""
+    import numpy as np
+    import torch
+
+    from sgnn_tpu_torch.physics import captured_step
+
+    def timed(capture):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        t0 = time.perf_counter()
+        out = run(capture)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        got = launches() - before
+        if got != per_step * steps:
+            raise AssertionError(f"{where} {'captured' if capture else 'eager'}: {got} kernel launches, "
+                                 f"expected {per_step} x {steps}")
+        return dict(out=out, ms=ms, peak_mb=torch.cuda.max_memory_allocated() / 1e6)
+
+    first = timed(True)
+    captured = captured_step.steps_of(sim)[-1]
+    if captured.graph is None:
+        raise AssertionError(f"{where}: the captured route captured no graph")
+    runs = {"eager": [timed(False)], "captured": []}
+    replays = captured.replays
+    runs["captured"] += [timed(True), timed(True)]
+    graph_launches = (captured.replays - replays) / (2 * steps)
+    runs["eager"].append(timed(False))
+
+    eager = runs["eager"][0]["out"]
+    diffs = {}
+    for key in ("predicted_rollout", "predicted_strain"):
+        want = eager[key]
+        for out in [first["out"]] + [r["out"] for r in runs["captured"]]:
+            got = out[key]
+            diff = float((got - want).abs().max())
+            diffs[key] = max(diffs.get(key, 0.0), diff)
+            if exact and not torch.equal(got, want):
+                raise AssertionError(f"{where}: captured {key} differs from eager (max |diff| {diff:.3e})")
+            if not exact:
+                a, b = got[:ROLLOUT_CHECK_STEPS].cpu().numpy(), want[:ROLLOUT_CHECK_STEPS].cpu().numpy()
+                atol, rtol = ROLLOUT_TOL
+                if (np.abs(a - b) > atol + rtol * np.abs(b)).any():
+                    raise AssertionError(f"{where}: captured {key} vs eager beyond atol {atol} + rtol {rtol} "
+                                         f"over the first {ROLLOUT_CHECK_STEPS} steps")
+    eager_repeats = all(torch.equal(runs["eager"][1]["out"][k], eager[k]) for k in ("predicted_rollout",
+                                                                                    "predicted_strain"))
+    no_sync_step(step, *step_inputs)
+
+    out = {"steps": steps, "check": "torch.equal" if exact else
+           f"atol {ROLLOUT_TOL[0]} + rtol {ROLLOUT_TOL[1]} over {ROLLOUT_CHECK_STEPS} steps",
+           "max_abs_diff_all_steps": diffs, "eager_repeats_bitwise": eager_repeats,
+           "warm_eager_step_sync_free": True}
+    for name, rs in runs.items():
+        ms = [r["ms"] for r in rs]
+        out[name] = dict(ms_per_step=sum(ms) / len(ms), ms_per_step_runs=ms, peak_memory_mb=rs[0]["peak_mb"],
+                         counted_launches_per_step=per_step)
+    out["captured"].update(first_call_ms_per_step=first["ms"], first_call_peak_memory_mb=first["peak_mb"],
+                           capture_s=captured.capture_seconds, graph_launches_per_step=graph_launches)
+    t_end = step_inputs[0][0].shape[1] + PROFILE_ROLLOUT_STEPS  # the window's length + the profiled steps
+    for name in ("eager", "captured"):
+        capture = name == "captured"
+        out[name]["profile"] = profile_rollout(lambda: run(capture, t_end), out[name]["ms_per_step"])
+    log(f"{where} routes: eager {out['eager']['ms_per_step']:.3f} ms/step, captured "
+        f"{out['captured']['ms_per_step']:.3f} ms/step (capture {captured.capture_seconds:.3f} s), "
+        f"{out['check']}: ok; warm eager step sync-free")
+    return out
 
 
 def gather_bound(tbl, idx):
@@ -1129,14 +1262,20 @@ def ms_write_inputs(root: Path, data: Path):
 def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: str):
     """``train_multi_scale.main`` in rollout mode from the config written
     for run ``name``; launches, ms/step, peak memory, the card-vs-CPU check
-    (f32) and a profile of a warm rollout."""
+    (f32; bf16: the first forward), and the captured route against the
+    eager one (``compare_routes``)."""
     import numpy as np
     import torch
 
     from sgnn_tpu_torch.data.loader import load_metadata
     from sgnn_tpu_torch.ops import row_gather as rg
     from sgnn_tpu_torch.physics.multi_scale_graph import DenseStaticGraph
-    from sgnn_tpu_torch.physics.multi_scale_simulator import ms_rollout, multi_scale_simulator_init
+    from sgnn_tpu_torch.physics.multi_scale_simulator import (
+        graph_to,
+        ms_rollout,
+        ms_rollout_step,
+        multi_scale_simulator_init,
+    )
     from sgnn_tpu_torch.physics.simulator import make_norm_stats
     from sgnn_tpu_torch.train import train_multi_scale as tms
     from sgnn_tpu_torch.train.checkpoint import CheckpointManager
@@ -1166,6 +1305,7 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_gather_launches()
+    # the port's entry point, on CUDA by default: its step captured and replayed
     summary = tms.main(["--config", str(yml), "--mode", "rollout", "--model_file", model_file])
     launches = dict(rg.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
@@ -1220,11 +1360,23 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
     stats = make_norm_stats(metadata, cfg.noise_std, device=gpu_sim.device)
     if dtype_name == "bfloat16":
         result["cpu_check"] = ms_bf16_forward_check(name, gpu_sim, sim_cfg, state, metadata, cfg.noise_std, traj)
-    t_end = cfg.input_sequence_length + PROFILE_ROLLOUT_STEPS
-    result["profile"] = profile_rollout(
-        lambda: ms_rollout(gpu_sim, sim_cfg, stats, traj["positions"][:, :t_end], traj["particle_type"],
-                           traj["strains"][:t_end], traj["graph"], traj["node_mask"]),
-        ms_step,
+    # the captured route against the eager one on the warm trajectory, on a
+    # simulator no rollout has used yet; COO's aggregation adds with float
+    # atomics (index_add_) in an order that changes from run to run, so COO
+    # is held to ROLLOUT_TOL over its first steps, every other path to
+    # torch.equal
+    warm = list(loader)[-1]
+    s = cfg.input_sequence_length
+    step_inputs = first_step_inputs(warm, s, gpu_sim.device, graph=graph_to(warm["graph"], gpu_sim.device))
+    result["routes"] = compare_routes(
+        f"ms rollout {name}", gpu_sim,
+        lambda capture, t_end=None: ms_rollout(gpu_sim, sim_cfg, stats, warm["positions"][:, :t_end],
+                                               warm["particle_type"], warm["strains"][:t_end], warm["graph"],
+                                               warm["node_mask"], inference_mode=cfg.inference_mode,
+                                               capture=capture),
+        steps=warm["positions"].shape[1] - s, exact=dense, launches=lambda: rg.LAUNCHES[rg.MODEL_VARIANT],
+        per_step=per_step, step=ms_rollout_step(gpu_sim, sim_cfg, stats, cfg.inference_mode),
+        step_inputs=step_inputs,
     )
     log(f"ms rollout {name} " + json.dumps(result))
     return result
@@ -1659,6 +1811,22 @@ def gather_summary(gather, probe, ms_runs):
     return entries
 
 
+def routes_summary(rollouts, ms_runs, smi):
+    """Per rollout path, each route's wall and device figures (from
+    ``compare_routes``), in one line."""
+    paths = {f"single_scale_{dt}": r["routes"] for dt, r in rollouts.items()}
+    paths.update({f"multi_scale_{name}": r["routes"] for name, r in ms_runs.items()})
+    out = {}
+    for path, routes in paths.items():
+        out[path] = {"check": routes["check"], "max_abs_diff_all_steps": routes["max_abs_diff_all_steps"]}
+        for name in ("eager", "captured"):
+            r, prof = routes[name], routes[name]["profile"]
+            out[path][name] = {k: r[k] for k in r if k != "profile"}
+            out[path][name].update({k: prof[k] for k in ("device_ms_per_step", "device_idle_share",
+                                                         "kernels_per_step", "host_calls_per_step") if k in prof})
+    return {"paths": out, "nvidia_smi": smi}
+
+
 def main() -> int:
     import argparse
 
@@ -1800,6 +1968,7 @@ def main() -> int:
                                  "sym_gather_backward_check": sym_check,
                                  "ms_card_vs_cpu_step": ms_step_checks,
                                  "seconds": time.perf_counter() - t_start}))
+    log("routes " + json.dumps(routes_summary(rollouts, ms_runs, smi)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}), flush=True)

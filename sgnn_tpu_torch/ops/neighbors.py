@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,6 +96,41 @@ def _cell_grid_shape(
     )
 
 
+class _GridConstants(NamedTuple):
+    lo: torch.Tensor  # [dim] domain minimum
+    cell: torch.Tensor  # [] cell side (the radius)
+    gshape: torch.Tensor  # int64[dim] cells per axis
+    strides: torch.Tensor  # int64[dim] row-major cell-id strides
+    offsets: torch.Tensor  # int64[3^dim, dim] the neighbouring cells' offsets
+
+
+_GRID_CONSTANTS: Dict[tuple, _GridConstants] = {}
+
+
+def _grid_constants(device, dtype, domain_min, domain_max, radius: float, dim: int) -> _GridConstants:
+    """The search's constant tensors, made once per (device, dtype, domain,
+    radius, dim) and kept: a search copies nothing from the host, so it
+    can be captured in a CUDA graph (which also keeps their addresses)."""
+    key = (torch.device(device), dtype, tuple(map(float, domain_min)), tuple(map(float, domain_max)),
+           float(radius), dim)
+    c = _GRID_CONSTANTS.get(key)
+    if c is None:
+        grid_shape = _cell_grid_shape(domain_min, domain_max, radius)
+        with torch.inference_mode(False):  # kept tensors, usable in and out of inference mode
+            c = _GRID_CONSTANTS[key] = _GridConstants(
+                lo=torch.tensor(domain_min, dtype=dtype, device=device),
+                # a device tensor, not a Python scalar: CUDA divides by a host scalar
+                # through its reciprocal, which would bin boundary particles differently
+                cell=torch.tensor(radius, dtype=dtype, device=device),
+                gshape=torch.tensor(grid_shape, dtype=torch.int64, device=device),
+                strides=torch.tensor([math.prod(grid_shape[i + 1:]) for i in range(dim)], dtype=torch.int64,
+                                     device=device),
+                offsets=torch.tensor(list(itertools.product((-1, 0, 1), repeat=dim)), dtype=torch.int64,
+                                     device=device),
+            )
+    return c
+
+
 def radius_neighbors_grid_batched(
     positions: torch.Tensor,  # f32[B, N, dim]
     radius: float,
@@ -112,7 +147,9 @@ def radius_neighbors_grid_batched(
     into it); graph b's cells are offset by ``b * num_cells`` so no edge
     crosses graphs. Particles are stable-sorted by cell id, so each cell's
     occupants sit in index order in one bucket; a receiver reads the first
-    ``cell_capacity`` occupants of each of its 3^dim cells.
+    ``cell_capacity`` occupants of each of its 3^dim cells. Every shape is
+    static and no value is read back to the host or copied from it, so a
+    step that runs the search can be captured in a CUDA graph.
 
     Returns senders as global flat indices into [B*N]; shapes [B*N, K].
     """
@@ -127,31 +164,23 @@ def radius_neighbors_grid_batched(
     flat_pos = positions.reshape(m, dim)
     flat_mask = node_mask.reshape(m)
 
-    lo = torch.tensor(domain_min, dtype=positions.dtype, device=dev)
-    # a device tensor, not a Python scalar: CUDA divides by a host scalar
-    # through its reciprocal, which would bin boundary particles differently
-    cell = torch.tensor(radius, dtype=positions.dtype, device=dev)
-    gshape = torch.tensor(grid_shape, dtype=torch.int64, device=dev)
-    strides = torch.tensor(
-        [math.prod(grid_shape[i + 1 :]) for i in range(dim)], dtype=torch.int64, device=dev
-    )
-    coords = torch.floor((flat_pos - lo) / cell).to(torch.int64)
-    coords = torch.minimum(torch.clamp(coords, min=0), gshape - 1)  # [M, dim]
+    c = _grid_constants(dev, positions.dtype, domain_min, domain_max, radius, dim)
+    coords = torch.floor((flat_pos - c.lo) / c.cell).to(torch.int64)
+    coords = torch.minimum(torch.clamp(coords, min=0), c.gshape - 1)  # [M, dim]
     batch_off = torch.arange(b, device=dev).repeat_interleave(n) * num_cells  # [M]
-    cid = (coords * strides).sum(dim=-1) + batch_off
+    cid = (coords * c.strides).sum(dim=-1) + batch_off
     cid = torch.where(flat_mask, cid, total)  # masked -> a cell nobody scans
 
     order = torch.sort(cid, stable=True).indices
-    # buckets 0..total-1 real cells, total the masked nodes, total+1 empty
-    counts = torch.bincount(cid, minlength=total + 3)
+    # buckets 0..total-1 real cells, total the masked nodes, total+1 empty;
+    # a histogram of fixed size (bincount would size it from cid.max(), a
+    # read of the device); integer adds are exact in any order
+    counts = torch.zeros(total + 3, dtype=torch.int64, device=dev).index_add_(0, cid, torch.ones_like(cid))
     starts = torch.cumsum(counts, dim=0) - counts  # bucket c = [starts[c], starts[c+1])
 
-    offsets = torch.tensor(
-        list(itertools.product((-1, 0, 1), repeat=dim)), dtype=torch.int64, device=dev
-    )  # [3^dim, dim]
-    nbr = coords[:, None, :] + offsets[None]  # [M, 3^dim, dim]
-    in_bounds = ((nbr >= 0) & (nbr < gshape)).all(dim=-1)
-    nbr_cid = (nbr * strides).sum(dim=-1) + batch_off[:, None]
+    nbr = coords[:, None, :] + c.offsets[None]  # [M, 3^dim, dim]
+    in_bounds = ((nbr >= 0) & (nbr < c.gshape)).all(dim=-1)
+    nbr_cid = (nbr * c.strides).sum(dim=-1) + batch_off[:, None]
     nbr_cid = torch.where(in_bounds, nbr_cid, total + 1)  # an empty bucket
 
     c_start = starts[nbr_cid]

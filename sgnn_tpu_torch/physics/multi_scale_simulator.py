@@ -8,8 +8,10 @@ several particle types, ``_particle_type_embedding.weight``),
 ``multi_scale_simulator_init``, the features, ``_forward``,
 ``ms_predict_positions``, the training forwards
 (``ms_predict_accelerations``, ``ms_forward_batched``,
-``ms_predict_accelerations_batched``) and ``ms_rollout``. Family
-differences kept from the reference:
+``ms_predict_accelerations_batched``) and ``ms_rollout``, whose step
+(``ms_rollout_step``) is captured in a CUDA graph on the card as the
+single-scale one is (``physics/captured_step.py``). Family differences
+kept from the reference:
 
   * the wall distance is normalised by the grid radius;
   * edge features normalise per edge type: grid radius for g2m and m2g,
@@ -40,8 +42,9 @@ from sgnn_tpu_torch.models.multi_scale import (
     multi_scale_gnn_apply_dense,
 )
 from sgnn_tpu_torch.nn.core import Embedding
+from sgnn_tpu_torch.physics import captured_step
 from sgnn_tpu_torch.physics.multi_scale_graph import DenseStaticGraph, MultiScaleConfig, StaticGraph
-from sgnn_tpu_torch.physics.rollout import EROSIONAL_PARTICLE_ID, cumulative_rmse, per_step_rmse
+from sgnn_tpu_torch.physics.rollout import EROSIONAL_PARTICLE_ID, advance_window, cumulative_rmse, per_step_rmse
 from sgnn_tpu_torch.physics.simulator import (
     _DTYPES,
     NormStats,
@@ -265,6 +268,19 @@ def ms_predict_accelerations_batched(sim, cfg, stats, next_positions, position_s
     return pred_acc, inverse_decoder_postprocess(stats, next_adjusted, noisy), pred_strain
 
 
+def ms_rollout_step(sim: MultiScaleSimulator, cfg: MultiScaleSimulatorConfig, stats: NormStats, inference_mode: str):
+    """The step ``(window [N, S, dim], gt_pos [N, dim], gt_strain [N], *,
+    particle_types, erosional, graph) -> (new window, next positions,
+    strain)`` over a static graph of tensors: no host sync and no host
+    data, so it can be captured."""
+
+    def step(window, gt_pos, gt_strain, *, particle_types, erosional, graph):
+        next_pos, strain = ms_predict_positions(sim, cfg, stats, window, particle_types, graph)
+        return advance_window(window, next_pos, strain, gt_pos, gt_strain, erosional, inference_mode)
+
+    return step
+
+
 @torch.inference_mode()
 def ms_rollout(
     sim: MultiScaleSimulator,
@@ -277,10 +293,13 @@ def ms_rollout(
     node_mask=None,  # [N] bool
     inference_mode: str = "autoregressive",
     device: Device = None,
+    capture: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Roll the model out with the static graph held fixed, on ``device``
     (CUDA unless told otherwise; ``sim`` and ``stats`` must already live
-    there). Erosional particles (type -1) follow the ground truth;
+    there), its step captured in a CUDA graph on the card (the graph is
+    copied into the captured step's static buffers); ``capture=False``
+    runs the eager loop. Erosional particles (type -1) follow the ground truth;
     'one_step' shifts the window with the ground truth. Returns the JAX
     ``ms_rollout``'s keys as tensors, per-step RMSE included."""
     if inference_mode not in ("autoregressive", "one_step"):
@@ -301,17 +320,12 @@ def ms_rollout(
     gt_strains = strains[s:]
     erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
 
-    pred_positions, pred_strains = [], []
-    for gt_pos, gt_strain in zip(gt_positions, gt_strains):
-        next_pos, strain = ms_predict_positions(sim, cfg, stats, window, particle_types, graph)
-        next_pos = torch.where(erosional, gt_pos, next_pos)
-        strain = torch.where(erosional[:, 0], gt_strain, strain)
-        fill = next_pos if inference_mode == "autoregressive" else gt_pos
-        window = torch.cat([window[:, 1:], fill[:, None, :]], dim=1)
-        pred_positions.append(next_pos)
-        pred_strains.append(strain)
-    pred_positions = torch.stack(pred_positions)
-    pred_strains = torch.stack(pred_strains)
+    fixed = dict(particle_types=particle_types, erosional=erosional, graph=graph)
+    key = ("ms_rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
+    pred_positions, pred_strains = captured_step.roll(
+        ms_rollout_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
+        capture=capture, owner=sim, key=key,
+    )
     return {
         "initial_positions": positions[:, :s].transpose(0, 1),
         "initial_strains": strains[:s],

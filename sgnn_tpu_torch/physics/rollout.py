@@ -1,8 +1,13 @@
-"""Autoregressive rollout as a Python loop over steps.
+"""Autoregressive rollout, one step captured in a CUDA graph.
 
 Port of ``sgnn_tpu/physics/rollout.py``. Each step rebuilds the graph,
 runs the flat forward (``predict_positions_flat``) and shifts the
-window. Semantics kept from the reference evaluation loop:
+window (``rollout_step``). JAX runs the steps as one compiled
+``lax.scan`` (``make_jit_rollout``); here ``rollout`` captures the step in
+a CUDA graph on the card and replays it
+(``physics/captured_step.py``), and on the CPU runs the same step over
+the same static buffers; ``capture=False`` takes the eager Python loop.
+Semantics kept from the reference evaluation loop:
 
   * erosional particles (type -1) follow the ground-truth trajectory and
     strain;
@@ -17,6 +22,7 @@ from typing import Dict, Optional
 
 import torch
 
+from sgnn_tpu_torch.physics import captured_step
 from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
     NormStats,
@@ -53,6 +59,29 @@ def per_step_rmse(
     return torch.sqrt(_mean_sq(pred, gt, node_mask))
 
 
+def advance_window(window, next_pos, strain, gt_pos, gt_strain, erosional, inference_mode: str):
+    """The end of a step (the body of the JAX scan): erosional particles
+    take the ground truth; the window shifts by the prediction
+    ('autoregressive') or by the ground truth ('one_step').
+    Returns (new window, next positions, strain)."""
+    next_pos = torch.where(erosional, gt_pos, next_pos)
+    strain = torch.where(erosional[:, 0], gt_strain, strain)
+    fill = next_pos if inference_mode == "autoregressive" else gt_pos
+    return torch.cat([window[:, 1:], fill[:, None, :]], dim=1), next_pos, strain
+
+
+def rollout_step(sim: LearnedSimulator, cfg: SimulatorConfig, stats: NormStats, inference_mode: str):
+    """The step ``(window [N, S, dim], gt_pos [N, dim], gt_strain [N], *,
+    particle_types, node_mask, erosional) -> (new window, next positions,
+    strain)``: no host sync and no host data, so it can be captured."""
+
+    def step(window, gt_pos, gt_strain, *, particle_types, node_mask, erosional):
+        next_pos, strain = predict_positions_flat(sim, cfg, stats, window, particle_types, node_mask)
+        return advance_window(window, next_pos, strain, gt_pos, gt_strain, erosional, inference_mode)
+
+    return step
+
+
 @torch.inference_mode()
 def rollout(
     sim: LearnedSimulator,
@@ -64,10 +93,12 @@ def rollout(
     node_mask=None,  # [N] bool
     inference_mode: str = "autoregressive",
     device: Device = None,
+    capture: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Roll the model out over a trajectory on ``device`` (CUDA unless
-    told otherwise; ``sim`` and ``stats`` must already live there).
-    Returns the reference's output dict as tensors."""
+    told otherwise; ``sim`` and ``stats`` must already live there), its
+    step captured in a CUDA graph on the card; ``capture=False`` runs the
+    eager loop. Returns the reference's output dict as tensors."""
     if inference_mode not in ("autoregressive", "one_step"):
         raise ValueError(f"Unknown inference_mode: {inference_mode}")
     dev = resolve_device(device)
@@ -85,17 +116,12 @@ def rollout(
     gt_strains = strains[s:]  # [T-S, N]
     erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
 
-    pred_positions, pred_strains = [], []
-    for gt_pos, gt_strain in zip(gt_positions, gt_strains):
-        next_pos, strain = predict_positions_flat(sim, cfg, stats, window, particle_types, node_mask)
-        next_pos = torch.where(erosional, gt_pos, next_pos)
-        strain = torch.where(erosional[:, 0], gt_strain, strain)
-        fill = next_pos if inference_mode == "autoregressive" else gt_pos
-        window = torch.cat([window[:, 1:], fill[:, None, :]], dim=1)
-        pred_positions.append(next_pos)
-        pred_strains.append(strain)
-    pred_positions = torch.stack(pred_positions)
-    pred_strains = torch.stack(pred_strains)
+    fixed = dict(particle_types=particle_types, node_mask=node_mask, erosional=erosional)
+    key = ("rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
+    pred_positions, pred_strains = captured_step.roll(
+        rollout_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
+        capture=capture, owner=sim, key=key,
+    )
 
     return {
         "initial_positions": positions[:, :s].transpose(0, 1),

@@ -3,8 +3,10 @@
 Port of ``sgnn_tpu/train/train.py`` (single device): ``simulator_config_from``,
 ``lr_schedule``, ``make_train_step`` (the loss of ``_make_step_body``,
 its backward and an Adam update), ``build_training`` (the model,
-optimizer, step and batcher ``train`` runs), ``train``, ``make_rollout`` (in place
-of ``make_jit_rollout``), ``evaluate_split``, ``predict`` and the CLI::
+optimizer, step and batcher ``train`` runs), ``train``, ``make_rollout``
+(the counterpart of ``make_jit_rollout``: the rollout whose step is
+captured in a CUDA graph on the card, which ``predict`` and the
+validation take), ``evaluate_split``, ``predict`` and the CLI::
 
   python -m sgnn_tpu_torch.train.train --config configs/taylor2d_single_scale.yaml \\
       --mode train|valid|rollout [--model_file NAME] [--device cuda|cpu]
@@ -221,6 +223,10 @@ def build_training(cfg: TrainConfig, device: torch.device, batch_size: Optional[
 def make_rollout(
     sim_cfg: SimulatorConfig, stats: NormStats, mode: str, device: torch.device
 ) -> Callable:
+    """The rollout ``predict`` and the validation run: its step captured in
+    a CUDA graph on the card (``physics/captured_step.py``), the
+    counterpart of JAX's ``make_jit_rollout``."""
+
     def _rollout(sim, positions, types, strains, node_mask):
         return rollout_fn(
             sim, sim_cfg, stats, positions, types, strains,

@@ -23,7 +23,9 @@ from ``model_file``.
 ``predict`` restores the simulator from a train-state checkpoint
 (``{"params", "opt_state", "step"}``, ``train/checkpoint.py``), builds one
 static graph per trajectory in the layout ``ms_dense`` picks (``"auto"``,
-True or False) and rolls every trajectory out with ``ms_rollout``. The
+True or False) and rolls every trajectory out with ``ms_rollout``, its
+step captured in a CUDA graph on the card (``_rollout_fn``, the
+counterpart of JAX's ``make_jit_rollout``; the validation takes it too). The
 multi-scale family scores a rollout by its PER-STEP RMSE: total, position
 and strain at the last step, one_step at the first. Data-parallel and
 graph-parallel runs are not ported yet (ROADMAP.md, Queue A item 6).
@@ -191,6 +193,9 @@ def _refuse_parallel(cfg: TrainConfig) -> None:
 
 
 def _rollout_fn(sim_cfg: MultiScaleSimulatorConfig, stats: NormStats, mode: str, device: torch.device) -> Callable:
+    """The rollout ``predict`` and the validation run: ``ms_rollout``, its
+    step captured in a CUDA graph on the card."""
+
     def rollout(sim, positions, types, strains, node_mask, graph):
         return ms_rollout(sim, sim_cfg, stats, positions, types, strains, graph,
                           node_mask=node_mask, inference_mode=mode, device=device)

@@ -458,3 +458,197 @@ def test_gather_functions_take_their_kernels_on_the_card(cuda, dtype):
             + torch.zeros(n, w, device=cuda).index_add_(0, de[1].reshape(-1), cot_j.reshape(-1, w).float()))
     atol = 1e-5 if dtype == torch.float32 else 2.0**-5 * float(want.abs().max())
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=1e-5 if dtype == torch.float32 else 2.0**-6)
+
+
+# --- the captured rollout: one step in a CUDA graph --------------------------------
+# Captured and eager routes launch the same kernels on the same inputs, so
+# they agree bit for bit; the COO layout's aggregation adds with float
+# atomics (index_add_), in an order that changes from run to run, so it is
+# held to the rollout tolerance over its first steps instead.
+CAPTURED_COO_TOL = dict(atol=1e-4, rtol=1e-4)
+CAPTURED_COO_STEPS = 3
+
+
+def _drifting_lattice(n_side, frames, seed, spacing=0.5):
+    """A jittered lattice drifting by a random walk: [N, T, 2] float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xs = np.arange(n_side) * spacing
+    base = np.stack(np.meshgrid(xs, xs, indexing="ij"), -1).reshape(-1, 2)
+    walk = np.cumsum(rng.normal(scale=0.01, size=(frames, len(base), 2)), axis=0)
+    return np.transpose(base[None] + walk + 0.02 * rng.normal(size=(1, len(base), 2)), (1, 0, 2)).astype(np.float32)
+
+
+def _norm_stats(device, dim=2):
+    from sgnn_tpu_torch.physics.simulator import NormStats
+
+    g = torch.Generator().manual_seed(4)
+    scale = dict(vel_mean=0.01, vel_std=0.05, acc_mean=0.001, acc_std=0.01)
+    return NormStats(**{k: ((0.5 + torch.rand(dim, generator=g)) * s).to(device) for k, s in scale.items()})
+
+
+def _single_scale(device, compute_dtype, s=6, frames=14):
+    import numpy as np
+
+    from sgnn_tpu_torch.physics.simulator import SimulatorConfig, simulator_init
+
+    cfg = SimulatorConfig(latent_dim=32, num_message_passing_steps=2, num_mlp_layers=1, connectivity_radius=0.6,
+                          input_sequence_length=s, max_neighbors=12, compute_dtype=compute_dtype,
+                          symmetric_gather=compute_dtype == "bfloat16", domain=((-3.0, -3.0), (12.0, 12.0)))
+    sim = simulator_init(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    pos = _drifting_lattice(18, frames, seed=1)
+    n = pos.shape[0]
+    types = np.zeros(n, np.int64)
+    types[:5] = -1  # erosional: follow the ground truth
+    mask = np.ones(n, bool)
+    mask[-7:] = False
+    strains = np.random.default_rng(2).normal(size=(frames, n)).astype(np.float32)
+    return sim, cfg, _norm_stats(device), (pos, types, strains, mask)
+
+
+def _multi_scale(device, layout, compute_dtype, s=5, frames=12):
+    import numpy as np
+
+    from sgnn_tpu_torch.physics import multi_scale_graph as tg
+    from sgnn_tpu_torch.physics.multi_scale_simulator import MultiScaleSimulatorConfig, multi_scale_simulator_init
+
+    cfg = MultiScaleSimulatorConfig(latent_dim=32, num_message_passing_steps=2, num_mlp_layers=2,
+                                    input_sequence_length=s, num_scales=2, window_size=2,
+                                    compute_dtype=compute_dtype)
+    sim = multi_scale_simulator_init(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    xs, ys = np.meshgrid(np.arange(12) * 0.5, np.arange(5) * 0.5, indexing="ij")
+    grid = np.stack([xs.ravel(), ys.ravel()], -1) + np.random.default_rng(0).normal(scale=0.01, size=(60, 2))
+    n = len(grid)
+    if layout == "dense":
+        graph = tg.build_dense_static_graph(cfg.graph_config, grid, g2m_rows=32, m2m_rows=32, m2g_rows=n,
+                                            tsp_rows={"g2m": n, "m2m": 32, "m2g": 32},
+                                            tsp_slots={"g2m": 8, "m2m": 24, "m2g": 24})
+    else:
+        graph = tg.build_static_graph(cfg.graph_config, grid, g2m_pad=512, m2m_pad=256, m2g_pad=512)
+    rng = np.random.default_rng(3)
+    pos = (grid[:, None, :] + rng.normal(scale=0.01, size=(n, frames, 2)).cumsum(axis=1)).astype(np.float32)
+    types = np.zeros(n, np.int64)
+    types[:3] = -1
+    strains = rng.normal(size=(frames, n)).astype(np.float32)
+    blocks = 2 + cfg.num_message_passing_steps * (len(graph.m2m) if layout == "dense" else 1)
+    return sim, cfg, _norm_stats(device), (pos, types, strains, graph), blocks
+
+
+def _assert_no_sync(step, *args, **fixed):
+    """One warm step of ``step`` under sync-debug mode "error"."""
+    with torch.inference_mode():
+        step(*args, **fixed)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(*args, **fixed)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_captured_rollout_equals_eager_single_scale(cuda, compute_dtype):
+    """rollout: captured (the first call warms up, captures and replays;
+    the second replays every step) equal to the eager loop with
+    torch.equal; the forward kernel's launches counted per replay; a warm
+    step needs no host sync."""
+    from sgnn_tpu_torch.physics import captured_step
+    from sgnn_tpu_torch.physics.rollout import rollout, rollout_step
+
+    sim, cfg, stats, (pos, types, strains, mask) = _single_scale(cuda, compute_dtype)
+    steps = pos.shape[1] - cfg.input_sequence_length
+    eager = rollout(sim, cfg, stats, pos, types, strains, mask, capture=False)
+    before = eb.LAUNCHES
+    first = rollout(sim, cfg, stats, pos, types, strains, mask)
+    assert eb.LAUNCHES - before == cfg.num_message_passing_steps * steps
+    again = rollout(sim, cfg, stats, pos, types, strains, mask)
+    assert eb.LAUNCHES - before == 2 * cfg.num_message_passing_steps * steps
+    (captured,) = captured_step.steps_of(sim)
+    assert captured.graph is not None and captured.replays == 2 * steps - 1
+    for out in (first, again):
+        for key in ("predicted_rollout", "predicted_strain", "rmse_position", "rmse_strain"):
+            assert torch.equal(out[key], eager[key]), key
+
+    s = cfg.input_sequence_length
+    t = lambda a, dtype=None: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+    types_t = t(types)
+    _assert_no_sync(rollout_step(sim, cfg, stats, "autoregressive"), t(pos[:, :s]), t(pos[:, s]), t(strains[s]),
+                    particle_types=types_t, node_mask=t(mask), erosional=(types_t == -1)[:, None])
+
+
+@pytest.mark.parametrize("layout,compute_dtype", [("dense", "float32"), ("dense", "bfloat16"), ("coo", "float32")])
+def test_captured_ms_rollout_equals_eager(cuda, layout, compute_dtype):
+    """ms_rollout: captured equal to eager with torch.equal (COO: to its
+    tolerance over the first steps, its aggregation adding with atomics);
+    2 take launches per block per step under replay; no host sync."""
+    from sgnn_tpu_torch.physics import captured_step
+    from sgnn_tpu_torch.physics.multi_scale_simulator import graph_to, ms_rollout, ms_rollout_step
+
+    sim, cfg, stats, (pos, types, strains, graph), blocks = _multi_scale(cuda, layout, compute_dtype)
+    steps = pos.shape[1] - cfg.input_sequence_length
+    eager = ms_rollout(sim, cfg, stats, pos, types, strains, graph, capture=False)
+    before = rg.LAUNCHES[rg.MODEL_VARIANT]
+    first = ms_rollout(sim, cfg, stats, pos, types, strains, graph)
+    again = ms_rollout(sim, cfg, stats, pos, types, strains, graph)
+    assert rg.LAUNCHES[rg.MODEL_VARIANT] - before == 2 * 2 * blocks * steps
+    (captured,) = captured_step.steps_of(sim)
+    assert captured.graph is not None and captured.replays == 2 * steps - 1
+    for out in (first, again):
+        for key in ("predicted_rollout", "predicted_strain"):
+            if layout == "dense":
+                assert torch.equal(out[key], eager[key]), key
+            else:
+                torch.testing.assert_close(out[key][:CAPTURED_COO_STEPS], eager[key][:CAPTURED_COO_STEPS],
+                                           **CAPTURED_COO_TOL)
+
+    s = cfg.input_sequence_length
+    t = lambda a, dtype=None: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+    types_t = t(types)
+    _assert_no_sync(ms_rollout_step(sim, cfg, stats, "autoregressive"), t(pos[:, :s]), t(pos[:, s]), t(strains[s]),
+                    particle_types=types_t, erosional=(types_t == -1)[:, None], graph=graph_to(graph, cuda))
+
+
+def test_captured_rollout_follows_the_weights(cuda):
+    """The graph reads the parameters in place: load_state_dict changes the
+    output and keeps the graph; a parameter whose storage is replaced is
+    read by a new capture."""
+    from sgnn_tpu_torch.physics import captured_step
+    from sgnn_tpu_torch.physics.rollout import rollout
+
+    sim, cfg, stats, (pos, types, strains, mask) = _single_scale(cuda, "float32")
+    first = rollout(sim, cfg, stats, pos, types, strains, mask)["predicted_rollout"]
+    other = {k: v * 1.01 for k, v in sim.state_dict().items()}
+    sim.load_state_dict(other)
+    (graph,) = [c.graph for c in captured_step.steps_of(sim)]
+    moved = rollout(sim, cfg, stats, pos, types, strains, mask)["predicted_rollout"]
+    assert [c.graph for c in captured_step.steps_of(sim)] == [graph]
+    assert not torch.equal(moved, first)
+    assert torch.equal(moved, rollout(sim, cfg, stats, pos, types, strains, mask, capture=False)["predicted_rollout"])
+    p = next(sim.parameters())
+    p.data = p.data.clone()
+    replaced = rollout(sim, cfg, stats, pos, types, strains, mask)["predicted_rollout"]
+    assert len(captured_step.steps_of(sim)) == 2
+    assert torch.equal(replaced, moved)
+
+
+def test_a_step_that_syncs_fails_to_capture_and_raises(cuda):
+    """A step that reads the device back cannot be captured: the rollout
+    raises, and no step after the warm-up runs eagerly in its place."""
+    from sgnn_tpu_torch.physics import captured_step
+
+    n, t = 64, 4
+    window, gt_pos, gt_strain = torch.zeros(n, 3, 2, device=cuda), torch.randn(t, n, 2, device=cuda), \
+        torch.randn(t, n, device=cuda)
+    calls = []
+
+    def step(window, gt_pos, gt_strain):
+        calls.append(float(gt_strain.sum()))  # a host read: a sync, refused under capture
+        return torch.cat([window[:, 1:], gt_pos[:, None]], dim=1), gt_pos * 2, gt_strain + 1
+
+    captured = captured_step.CapturedStep(window, gt_pos, gt_strain, {})
+    with pytest.raises(RuntimeError):
+        captured.run(step, window, gt_pos, gt_strain, {})
+    assert captured.graph is None and len(calls) == 1  # the warm-up step only
+    torch.cuda.synchronize()
