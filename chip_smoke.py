@@ -25,14 +25,25 @@ each of which raises on failure:
      configs/taylor2d_single_scale.yaml (A: f32, batch 32, explicit
      domain) and configs/taylor2d_demo_bf16.yaml (B: bf16, batch 16,
      domain from metadata, symmetric gather by the auto-rule), 5 layers,
-     hidden 64, r = 0.6, window 11. Each run counts the kernels' launches
-     (every forward launch must be the tensor-core kernel's) and the
-     symmetric gather's backward passes, reads its metrics and
-     checkpoint, and is profiled over 3 steps. Then A's loss on one fixed
+     hidden 64, r = 0.6, window 11: its batches through the prefetcher,
+     its step captured in a CUDA graph and replayed, validating at step
+     10 while the prefetcher stages. Each run counts the kernels' launches
+     (every forward launch must be the tensor-core kernel's; A's sender
+     gathers: the take kernel forward and backward, the sorted sum
+     backward) and the symmetric gather's backward passes, reads its
+     metrics and checkpoint; then ``training_routes`` runs the captured
+     step and the eager one (A: the eager one twice) on the same staged
+     batches and noise stream: parameters, Adam's moments and steps and
+     every metric equal with torch.equal, the launches of both, wall,
+     device busy and idle, kernels and host calls per step, capture time,
+     peak memory of the capturing and of an eager call, and one warm step
+     of each under sync-debug mode "error". Then A's loss on one fixed
      batch must fall over 10 steps; one step of each of A and B at full
      width on 2 samples must match the same step on the CPU through the
-     plain versions (loss, every gradient, the parameters after Adam);
-     and on B's graph sym_gather's backward must match index_select's;
+     plain versions (loss, every gradient, the parameters after Adam); on
+     B's graph sym_gather's backward must match index_select's; and A's
+     deterministic sender gather (one stable sort, the take kernel, the
+     sorted sum) is timed against index_select's (``c2_cost``);
   6. rollout: ``predict`` in rollout mode from the checkpoint each
      training run wrote (A in f32, B in bf16), its step captured in a
      CUDA graph and replayed (the port of ``make_jit_rollout``), counting
@@ -59,26 +70,31 @@ each of which raises on failure:
      hidden 128) from a checkpoint of seeded initial weights, for the
      dense layout (``ms_dense: auto``) in f32 and bf16 and for COO in
      f32; each run must launch ``row_gather`` exactly 2 x (blocks) per
-     step; the f32 runs' first steps are held against the same rollout
-     on the CPU, the bf16 run's first forward against the CPU's within
-     twice the CPU's own bf16-vs-f32 gap; the rollouts are captured as in
-     6, and each run's captured route is held against its eager one as
-     there (COO to ROLLOUT_TOL over its first steps: its aggregation adds
-     with float atomics);
+     step (and the sorted sum once per block: the aggregation); the f32
+     runs' first steps are held against the same rollout on the CPU, the
+     bf16 run's first forward against the CPU's within twice the CPU's own
+     bf16-vs-f32 gap; the rollouts are captured as in 6, and each run's
+     captured route is held against its eager one as there, every layout
+     with torch.equal over the whole trajectory (no sum adds with atomics);
  10. multi-scale training: ``train_multi_scale.main`` in train mode at the
-     same values, dense f32 and dense bf16 for 20 steps and COO f32 for 5,
-     each launching the take kernel 2 x (blocks) per step and per
-     validation rollout step, the sorted backward once per block and the
-     planned backward once per dense block per step, exactly; metrics,
-     checkpoint, a profile over 3 warm steps and peak memory. Then one
-     dense f32 and one dense bf16 step at full width on 2 samples against
-     the same step on the CPU (STEP_TOL), and both backward kernels against
-     their plain versions at the model's shapes (dense and COO batches)
-     and at ragged sizes (a run of 5,003 ids, runs across the sorted sum's
-     chunks), each launched twice and bit-identical to its plain version,
-     timed beside the index_add_ route and their bound.
+     same values, dense f32 and dense bf16 for 20 steps and COO f32 for 10,
+     prefetched and captured as in 5, each launching the take kernel and
+     the sorted and planned kernels exactly as the graph asks (per step
+     and block: 2 gathers forward and one per backward of a sorted sum or
+     of the COO sender order; a sorted sum per aggregation and per
+     receiver backward, and per COO sender backward; a planned backward
+     per dense block; per validation rollout step: 2 gathers and one
+     sorted sum per block); metrics, checkpoint, and ``training_routes``
+     as in 5 (COO: the eager step twice). Then one dense f32 and one dense
+     bf16 step at full width on 2 samples against the same step on the
+     CPU (STEP_TOL), and both backward kernels against their plain
+     versions at the model's shapes (dense and COO batches) and at ragged
+     sizes (a run of 5,003 ids, runs across the sorted sum's chunks), each
+     launched twice and bit-identical to its plain version, timed beside
+     the index_add_ route and their bound.
 
-The last lines are the rollout routes of 6 and 9 (one ``routes {...}``
+The last lines are the training routes of 5 and 10 (one ``train routes
+{...}`` JSON line), the rollout routes of 6 and 9 (one ``routes {...}``
 JSON line), the kernel summary (JSON), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -148,9 +164,9 @@ SUM_RTOL = {"float32": 2e-5, "bfloat16": 1e-5}
 # f32 rollout on the card vs on the CPU, first steps: sums in another order
 # through 5 layers, positions of |x| < 64 carry an f32 ulp of 7.6e-6. The
 # multi-scale rollout is held to the same: its sums run through 12 blocks of
-# 3-layer MLPs at width 128, and index_add_ on the card adds with atomics in
-# no fixed order, but positions move by the normalised acceleration times
-# acc_std, so the outputs' f32 rounding (|x| < 64, strain O(1)) sets the error.
+# 3-layer MLPs at width 128 (the GEMMs sum in another order on the card),
+# but positions move by the normalised acceleration times acc_std, so the
+# outputs' f32 rounding (|x| < 64, strain O(1)) sets the error.
 ROLLOUT_TOL = (1e-4, 1e-4)
 ROLLOUT_CHECK_STEPS = 3
 # dense bf16 multi-scale forward, card vs CPU: the CPU's bf16 forward lies
@@ -160,8 +176,7 @@ ROLLOUT_CHECK_STEPS = 3
 # the gap, so one side's roundings do not all land where the other's do.
 BF16_GAP_FACTOR = 2.0
 # one training step on the card vs on the CPU at full width. A (f32): sums
-# in another order through 5 layers and their backward (and index_select's
-# backward adds with atomics on the card), ReLU gates whose h lies within
+# in another order through 5 layers and their backward, ReLU gates whose h lies within
 # rounding of 0 may differ. Loss and metrics to 1e-4 relative; each
 # gradient to 1e-3 of its tensor's largest entry plus 1e-3 relative.
 # Adam's first step moves an entry by lr * g / (|g| + eps), which two
@@ -176,8 +191,8 @@ BF16_GAP_FACTOR = 2.0
 # Measured on the H100: loss 1.8e-5 relative, gradients 5.2e-4 of their
 # scale (A: 1.1e-7 and 1.5e-5); B's limits are ~10x those.
 # MS_f32 (multi-scale, dense f32, 12 blocks of 3-layer MLPs at width 128):
-# A's limits; its gathers' backwards add in one fixed order on both sides,
-# the products and index_add_'s aggregation sum in another order on the card.
+# A's limits; its gathers' backwards and its aggregations add in one fixed
+# order on both sides, the products sum in another order on the card.
 # MS_bf16: both sides round the edge tensors to bf16 op by op, at the same
 # ops; an f32 sum in another order flips a rounding now and then, and the
 # sums over every edge (the edge MLPs' bias gradients) cancel down to small
@@ -192,6 +207,11 @@ STEP_TOL = {
 }
 TRAIN_STEPS, SAVE_EVERY, LOG_EVERY = 20, 10, 10
 PROFILE_STEPS = 3
+# training_routes: steps per route on batches staged beforehand: warm (the
+# captured route's first is its warm-up and capture), timed, PROFILE_STEPS
+# profiled, and one under sync-debug mode "error"
+ROUTE_WARM_STEPS, ROUTE_TIMED_STEPS = 2, 3
+C2_TIMING_ITERS = 20  # c2_cost: per-step sender gathers captured in one CUDA graph
 PROFILE_ROLLOUT_STEPS = 10
 # the CUDA API calls (cuda* and cu*) by which the host launches work, counted in profiles
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -213,9 +233,10 @@ MS_MODEL = dict(
 )
 # name: (ms_dense, compute_dtype); "auto" picks the dense layout at this scale
 MS_RUNS = {"dense_f32": ("auto", "float32"), "dense_bf16": ("auto", "bfloat16"), "coo_f32": (False, "float32")}
-# multi-scale training (phase 10): name -> (ms_dense, compute_dtype, steps)
-MS_TRAIN_RUNS = {"dense_f32": ("auto", "float32", TRAIN_STEPS), "dense_bf16": ("auto", "bfloat16", TRAIN_STEPS),
-                 "coo_f32": (False, "float32", 5)}
+# multi-scale training (phase 10): name -> (ms_dense, compute_dtype, steps, log_every)
+MS_TRAIN_RUNS = {"dense_f32": ("auto", "float32", TRAIN_STEPS, LOG_EVERY),
+                 "dense_bf16": ("auto", "bfloat16", TRAIN_STEPS, LOG_EVERY),
+                 "coo_f32": (False, "float32", 10, 5)}  # logs steps 6-10: the warm step time
 
 MODEL = dict(  # the model of both configs
     layers=5,
@@ -591,7 +612,9 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
 
     from sgnn_tpu_torch.data.loader import TrajectoryLoader, load_metadata
     from sgnn_tpu_torch.ops import edge_block as eb
+    from sgnn_tpu_torch.ops import row_gather as rg
     from sgnn_tpu_torch.ops import sym_gather as sg
+    from sgnn_tpu_torch.train import train as trainer
     from sgnn_tpu_torch.train.train import simulator_config_from, train
 
     cfg = train_config(root, data, name)
@@ -600,18 +623,23 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
     nodes = TrajectoryLoader(data / "train.npz", pad_multiple=cfg.pad_multiple).num_nodes
     val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
     layers = cfg.layers
+    ordered = 0 if sim_cfg.symmetric_gather else layers * TRAIN_STEPS  # A's sender gathers, one per layer
     expect = dict(bwd=layers * TRAIN_STEPS,
                   fwd=layers * TRAIN_STEPS + layers * val_steps * (TRAIN_STEPS // SAVE_EVERY),
-                  sym_bwd=layers * TRAIN_STEPS if sim_cfg.symmetric_gather else 0)
+                  sym_bwd=layers * TRAIN_STEPS if sim_cfg.symmetric_gather else 0,
+                  take=2 * ordered, sorted=ordered)  # the take kernel forward and over the order backward
     log(f"train {name} ({cfg.compute_dtype}): batch {cfg.batch_size}, K={sim_cfg.slots}, "
         f"symmetric_gather={sim_cfg.symmetric_gather}, domain {sim_cfg.domain}")
 
     torch.cuda.synchronize()
     eb.LAUNCHES = eb.BWD_LAUNCHES = sg.BWD_CALLS = 0
     reset_fwd_variant_launches()
+    reset_gather_launches()
+    reset_bwd_gather_launches()
     t0 = time.perf_counter()
-    result = train(cfg)  # the port's entry point, on CUDA by default
-    got = dict(fwd=eb.LAUNCHES, bwd=eb.BWD_LAUNCHES, sym_bwd=sg.BWD_CALLS)
+    result = train(cfg)  # the port's entry point, on CUDA by default: prefetched, captured
+    got = dict(fwd=eb.LAUNCHES, bwd=eb.BWD_LAUNCHES, sym_bwd=sg.BWD_CALLS, take=rg.LAUNCHES[rg.MODEL_VARIANT],
+               sorted=rg.BWD_LAUNCHES["sorted"])
     variants = dict(eb.FWD_VARIANT_LAUNCHES)
     wall_s = time.perf_counter() - t0
     if got != expect:
@@ -644,51 +672,129 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
         train_loss=[r["train/loss"] for r in train_rec], val_loss=[r["val/loss"] for r in val_rec],
         checkpoint=meta["path"], wall_s=wall_s, device=kind, nvidia_smi=smi,
     )
-    out["profile"] = profile_training(cfg, torch.device("cuda", torch.cuda.current_device()))
+    out["routes"] = training_routes(f"train {name}", cfg, torch.device("cuda", torch.cuda.current_device()),
+                                    trainer, repeat_eager=not sim_cfg.symmetric_gather)
     log(f"train {name} " + json.dumps(out))
     return out, cfg, meta["path"]
 
 
-def profile_training(cfg, device, warm=2, trainer=None):
-    """Peak memory of a training step, and device time per step from
-    torch.profiler over PROFILE_STEPS warm steps beside the wall time of
-    the same steps unprofiled. ``trainer``: the module whose
-    ``build_training`` and ``batch_to_device`` wire the step (default the
-    single-scale ``train.train``)."""
+def _clone(tree):
+    return {k: v.detach().clone() for k, v in tree.items()}
+
+
+def _launch_counts():
+    from sgnn_tpu_torch.ops import edge_block as eb
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.ops import sym_gather as sg
+
+    return dict(edge_block_fwd=eb.LAUNCHES, edge_block_bwd=eb.BWD_LAUNCHES, sym_gather_bwd=sg.BWD_CALLS,
+                take=rg.LAUNCHES[rg.MODEL_VARIANT], sorted=rg.BWD_LAUNCHES["sorted"],
+                planned=rg.BWD_LAUNCHES["planned"])
+
+
+def training_routes(where, cfg, device, trainer, repeat_eager=False):
+    """The captured training step against the eager one (``capture=False``),
+    each from the seeded start of ``trainer.build_training(cfg)`` (the same
+    weights and noise stream) on the same batches staged beforehand:
+    ROUTE_WARM_STEPS steps (the captured route's first: its warm-up step
+    and the capture), ROUTE_TIMED_STEPS timed (host clock around steps
+    ending in a sync), PROFILE_STEPS under torch.profiler, and one under
+    sync-debug mode "error". Captured equals eager with torch.equal: every
+    metric of every warm step and of the last step of each phase, every
+    parameter, Adam's moments and step counts; ``repeat_eager``: a second
+    eager run equals the first too (determinism). Per route: the kernel
+    launches per step (equal on both), wall, device busy and idle share,
+    kernels and host calls per step, peak memory of the first call (the
+    capturing call) and of the timed steps, and the capture's host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if trainer is None:
-        from sgnn_tpu_torch.train import train as trainer
-    build_training, batch_to_device = trainer.build_training, trainer.batch_to_device
-
-    built = build_training(cfg, device)
-    sim, step_fn = built.sim, built.step_fn
+    built = trainer.build_training(cfg, device)
     source = built.batcher.epochs()
-    batches = [batch_to_device(next(source), sim.device) for _ in range(warm + 2 * PROFILE_STEPS)]
-    step = 0
-    for b in batches[:warm]:
-        step_fn(b, step)
-        step += 1
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for b in batches[warm:warm + PROFILE_STEPS]:
-        step_fn(b, step)
-        step += 1
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for b in batches[warm + PROFILE_STEPS:]:
-            step_fn(b, step)
-            step += 1
+    n_steps = ROUTE_WARM_STEPS + ROUTE_TIMED_STEPS + PROFILE_STEPS + 1
+    batches = [trainer.batch_to_device(next(source), device) for _ in range(n_steps)]
+    del built, source
+
+    def run(capture):
         torch.cuda.synchronize()
-    del built, sim, step_fn, batches
-    torch.cuda.empty_cache()
-    res = dict(wall_ms_per_step=wall_ms, peak_memory_mb=peak_mb)
-    res.update(device_profile(prof, PROFILE_STEPS, wall_ms))
-    return res
+        torch.cuda.empty_cache()
+        built = trainer.build_training(cfg, device)
+        step_fn = built.step_fn
+        step_fn.capture = capture
+        before, metrics = _launch_counts(), []
+        steps = iter(enumerate(batches))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(ROUTE_WARM_STEPS):
+            i, b = next(steps)
+            metrics.append(_clone(step_fn(b, i)))
+            if i == 0:  # the captured route's first call: the warm-up step and the capture
+                torch.cuda.synchronize()
+                first_s, first_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e6
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(ROUTE_TIMED_STEPS):
+            i, b = next(steps)
+            m = step_fn(b, i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ROUTE_TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        metrics.append(_clone(m))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_STEPS):
+                i, b = next(steps)
+                m = step_fn(b, i)
+            torch.cuda.synchronize()
+        metrics.append(_clone(m))
+        i, b = next(steps)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = step_fn(b, i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        metrics.append(_clone(m))
+        res = dict(wall_ms_per_step=wall_ms, first_call_s=first_s, first_call_peak_memory_mb=first_peak,
+                   peak_memory_mb=peak, launches_per_step={k: (v - before[k]) / n_steps
+                                                           for k, v in _launch_counts().items()})
+        res.update(device_profile(prof, PROFILE_STEPS, wall_ms))
+        if capture:
+            if step_fn.graph is None or step_fn.replays != n_steps - 1:
+                raise AssertionError(f"{where}: the captured route replayed {step_fn.replays} steps, "
+                                     f"expected {n_steps - 1}")
+            res.update(capture_s=step_fn.capture_seconds, replays=step_fn.replays)
+        state = (metrics, _clone(built.sim.state_dict()),
+                 [_clone(st) for st in built.optimizer.state.values()])
+        step_fn.close()
+        del built, step_fn
+        torch.cuda.empty_cache()
+        return res, state
+
+    def same(a, b):
+        (ma, pa, sa), (mb, pb, sb) = a, b
+        return (all(x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x) for x, y in zip(ma, mb))
+                and all(torch.equal(v, pb[k]) for k, v in pa.items())
+                and len(sa) == len(sb) and all(all(torch.equal(x[k], y[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+                                               for x, y in zip(sa, sb)))
+
+    out, states = {}, {}
+    for name, capture in [("captured", True), ("eager", False)] + ([("eager_again", False)] if repeat_eager else []):
+        out[name], states[name] = run(capture)
+    for name in states:
+        if out[name]["launches_per_step"] != out["eager"]["launches_per_step"]:
+            raise AssertionError(f"{where}: {name} launches per step {out[name]['launches_per_step']}, eager "
+                                 f"{out['eager']['launches_per_step']}")
+        if not same(states[name], states["eager"]):
+            raise AssertionError(f"{where}: {name} training differs from the eager one (torch.equal on the "
+                                 "metrics, parameters and Adam's state)")
+    out["check"] = ("torch.equal: metrics, parameters, Adam's moments and steps after "
+                    f"{len(batches)} steps; " + ", ".join(n for n in states if n != "eager") + " vs eager")
+    out["steps"] = len(batches)
+    log(f"{where} routes: captured {out['captured']['wall_ms_per_step']:.3f} ms/step "
+        f"(capture {out['captured']['capture_s']:.3f} s), eager {out['eager']['wall_ms_per_step']:.3f} ms/step; "
+        f"{out['check']}: ok; warm steps sync-free")
+    return out
 
 
 def device_profile(prof, steps, wall_ms_step):
@@ -869,6 +975,74 @@ def sym_gather_check(cfg, device):
     return out
 
 
+def c2_cost(cfg, device):
+    """What config A's deterministic sender gathers cost per training step
+    (``cfg.layers`` of them) against index_select's, on the graph of one
+    full A batch (searched on the card as forward_batched does), each
+    route's calls captured in one CUDA graph and its replay timed (device
+    time): the old route, index_select forward and index_add_ (its
+    backward, float atomics) per layer; the new one, one stable sort of the
+    senders per step, then per layer the take kernel forward, the take
+    kernel over the order and the sorted sum backward. The new backward
+    repeats bit for bit and lies within f32 rounding of index_add_'s
+    (K * 2^-23 of sum|terms|)."""
+    import torch
+
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.ops.neighbors import radius_neighbors_grid_batched
+    from sgnn_tpu_torch.scripts.gather_kernel_probe import time_ms as graph_time_ms
+    from sgnn_tpu_torch.train.train import batch_to_device, build_training
+
+    built = build_training(cfg, device)
+    sim_cfg = built.sim_cfg
+    batch = batch_to_device(next(built.batcher.epochs()), device)
+    del built
+    nl = radius_neighbors_grid_batched(
+        batch["positions"][..., -1, :], sim_cfg.connectivity_radius,
+        domain_min=tuple(sim_cfg.domain[0]), domain_max=tuple(sim_cfg.domain[1]),
+        max_neighbors=sim_cfg.slots, node_mask=batch["node_mask"], cell_capacity=sim_cfg.cell_capacity,
+    )
+    r, k = nl.senders.shape
+    senders, width, layers = nl.senders.reshape(-1), sim_cfg.latent_dim, cfg.layers
+    g = torch.Generator(device=device).manual_seed(5)
+    table = torch.randn(r, width, generator=g, device=device)
+    cot = torch.randn(r * k, width, generator=g, device=device) * nl.mask.reshape(-1, 1)  # 0 at padded slots
+
+    def old():
+        for _ in range(layers):
+            table.index_select(0, senders)
+            torch.zeros(r, width, device=device).index_add_(0, senders, cot)
+
+    def sort():
+        return torch.sort(senders.int(), stable=True)
+
+    def new():
+        sorted_s, order = sort()
+        for _ in range(layers):
+            rg.row_gather(table, senders)
+            rg.sorted_segment_sum(rg.row_gather(cot, order), sorted_s, r)
+
+    sorted_s, order = sort()
+    got = rg.sorted_segment_sum(rg.row_gather(cot, order), sorted_s, r)
+    again = rg.sorted_segment_sum(rg.row_gather(cot, sort()[1]), sorted_s, r)
+    want = torch.zeros(r, width, device=device).index_add_(0, senders, cot)
+    abs_sum = torch.zeros(r, width, device=device).index_add_(0, senders, cot.abs())
+    err = (got - want).abs()
+    if not torch.equal(got, again) or (err > k * 2.0**-23 * abs_sum).any():
+        raise AssertionError(f"c2 cost: the sorted sender backward repeats: {torch.equal(got, again)}; "
+                             f"max |err| vs index_add_ {float(err.max()):.3e}")
+    runs = {name: [] for name in ("old", "new", "sort")}
+    for name in ("old", "new", "sort", "sort", "new", "old"):
+        runs[name].append(graph_time_ms({"old": old, "new": new, "sort": sort}[name], C2_TIMING_ITERS, device))
+    out = {name: sum(v) / len(v) for name, v in runs.items()}
+    out = dict(index_select_route_ms_per_step=out["old"], sorted_route_ms_per_step=out["new"],
+               sort_ms_per_step=out["sort"], extra_ms_per_step=out["new"] - out["old"], runs_ms=runs,
+               receivers=r, slots=k, width=width, layers=layers, edges=int(nl.mask.sum()),
+               max_abs_err_vs_index_add=float(err.max()), repeats_bitwise=True)
+    log("c2 cost (A's sender gathers per step) " + json.dumps(out))
+    return out
+
+
 def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, kind: str):
     import numpy as np
     import torch
@@ -984,7 +1158,7 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
         lambda capture, t_end=None: rollout(gpu_sim, sim_cfg, stats, warm["positions"][:, :t_end],
                                             warm["particle_type"], warm["strains"][:t_end], warm["node_mask"],
                                             inference_mode=cfg.inference_mode, capture=capture),
-        steps=warm["positions"].shape[1] - s, exact=True, launches=lambda: eb.LAUNCHES, per_step=cfg.layers,
+        steps=warm["positions"].shape[1] - s, launches=lambda: eb.LAUNCHES, per_step=cfg.layers,
         step=rollout_step(gpu_sim, sim_cfg, stats, cfg.inference_mode), step_inputs=step_inputs,
     )
     log("rollout " + json.dumps(result))
@@ -1034,7 +1208,7 @@ def no_sync_step(step, args, fixed):
         torch.cuda.synchronize()
 
 
-def compare_routes(where, sim, run, steps, exact, launches, per_step, step, step_inputs):
+def compare_routes(where, sim, run, steps, launches, per_step, step, step_inputs):
     """The captured rollout route against the eager one on one warm
     trajectory of ``steps`` steps; ``run(capture, t_end=None)`` rolls it
     out on ``sim``, a simulator no rollout has used (so that its first
@@ -1045,10 +1219,9 @@ def compare_routes(where, sim, run, steps, exact, launches, per_step, step, step
     on both routes; on the captured one added by the replays), device busy
     and idle share and host launch calls per step from a profile of
     PROFILE_ROLLOUT_STEPS steps; the capture's host time and graph launches
-    per step. Captured equals eager with torch.equal (``exact``), else to
-    ROLLOUT_TOL over the first ROLLOUT_CHECK_STEPS steps. Last, one warm
-    eager ``step`` on ``step_inputs`` under sync-debug mode "error"."""
-    import numpy as np
+    per step. Captured equals eager, and the second eager call the first,
+    with torch.equal over the whole trajectory. Last, one warm eager
+    ``step`` on ``step_inputs`` under sync-debug mode "error"."""
     import torch
 
     from sgnn_tpu_torch.physics import captured_step
@@ -1086,22 +1259,14 @@ def compare_routes(where, sim, run, steps, exact, launches, per_step, step, step
             got = out[key]
             diff = float((got - want).abs().max())
             diffs[key] = max(diffs.get(key, 0.0), diff)
-            if exact and not torch.equal(got, want):
+            if not torch.equal(got, want):
                 raise AssertionError(f"{where}: captured {key} differs from eager (max |diff| {diff:.3e})")
-            if not exact:
-                a, b = got[:ROLLOUT_CHECK_STEPS].cpu().numpy(), want[:ROLLOUT_CHECK_STEPS].cpu().numpy()
-                atol, rtol = ROLLOUT_TOL
-                if (np.abs(a - b) > atol + rtol * np.abs(b)).any():
-                    raise AssertionError(f"{where}: captured {key} vs eager beyond atol {atol} + rtol {rtol} "
-                                         f"over the first {ROLLOUT_CHECK_STEPS} steps")
-    eager_repeats = all(torch.equal(runs["eager"][1]["out"][k], eager[k]) for k in ("predicted_rollout",
-                                                                                    "predicted_strain"))
+        if not torch.equal(runs["eager"][1]["out"][key], want):
+            raise AssertionError(f"{where}: two eager rollouts differ in {key}")
     no_sync_step(step, *step_inputs)
 
-    out = {"steps": steps, "check": "torch.equal" if exact else
-           f"atol {ROLLOUT_TOL[0]} + rtol {ROLLOUT_TOL[1]} over {ROLLOUT_CHECK_STEPS} steps",
-           "max_abs_diff_all_steps": diffs, "eager_repeats_bitwise": eager_repeats,
-           "warm_eager_step_sync_free": True}
+    out = {"steps": steps, "check": "torch.equal over the whole trajectory (captured vs eager, eager vs eager)",
+           "max_abs_diff_all_steps": diffs, "eager_repeats_bitwise": True, "warm_eager_step_sync_free": True}
     for name, rs in runs.items():
         ms = [r["ms"] for r in rs]
         out[name] = dict(ms_per_step=sum(ms) / len(ms), ms_per_step_runs=ms, peak_memory_mb=rs[0]["peak_mb"],
@@ -1114,7 +1279,7 @@ def compare_routes(where, sim, run, steps, exact, launches, per_step, step, step
         out[name]["profile"] = profile_rollout(lambda: run(capture, t_end), out[name]["ms_per_step"])
     log(f"{where} routes: eager {out['eager']['ms_per_step']:.3f} ms/step, captured "
         f"{out['captured']['ms_per_step']:.3f} ms/step (capture {captured.capture_seconds:.3f} s), "
-        f"{out['check']}: ok; warm eager step sync-free")
+        f"torch.equal: ok; warm eager step sync-free")
     return out
 
 
@@ -1299,15 +1464,17 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
     frames = [p.shape[0] for p, _, _ in loader.trajectories]
     steps = sum(f - cfg.input_sequence_length for f in frames)
     expect = {v: (per_step * steps if v == rg.MODEL_VARIANT else 0) for v in rg.VARIANTS}
+    expect["sorted_sum"] = blocks * steps  # the aggregation of every block
     log(f"ms {name}: {len(frames)} test trajectories x {loader.num_nodes} nodes (padded), "
         f"{'dense' if dense else 'COO'} layout, {blocks} blocks, {steps} rollout steps, {dtype_name}")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_gather_launches()
+    reset_bwd_gather_launches()
     # the port's entry point, on CUDA by default: its step captured and replayed
     summary = tms.main(["--config", str(yml), "--mode", "rollout", "--model_file", model_file])
-    launches = dict(rg.LAUNCHES)
+    launches = dict(rg.LAUNCHES, sorted_sum=rg.BWD_LAUNCHES["sorted"])
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     if launches != expect:
         raise AssertionError(f"ms {name}: row_gather launches {launches}, expected {expect}")
@@ -1361,10 +1528,7 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
     if dtype_name == "bfloat16":
         result["cpu_check"] = ms_bf16_forward_check(name, gpu_sim, sim_cfg, state, metadata, cfg.noise_std, traj)
     # the captured route against the eager one on the warm trajectory, on a
-    # simulator no rollout has used yet; COO's aggregation adds with float
-    # atomics (index_add_) in an order that changes from run to run, so COO
-    # is held to ROLLOUT_TOL over its first steps, every other path to
-    # torch.equal
+    # simulator no rollout has used yet
     warm = list(loader)[-1]
     s = cfg.input_sequence_length
     step_inputs = first_step_inputs(warm, s, gpu_sim.device, graph=graph_to(warm["graph"], gpu_sim.device))
@@ -1374,7 +1538,7 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
                                                warm["particle_type"], warm["strains"][:t_end], warm["graph"],
                                                warm["node_mask"], inference_mode=cfg.inference_mode,
                                                capture=capture),
-        steps=warm["positions"].shape[1] - s, exact=dense, launches=lambda: rg.LAUNCHES[rg.MODEL_VARIANT],
+        steps=warm["positions"].shape[1] - s, launches=lambda: rg.LAUNCHES[rg.MODEL_VARIANT],
         per_step=per_step, step=ms_rollout_step(gpu_sim, sim_cfg, stats, cfg.inference_mode),
         step_inputs=step_inputs,
     )
@@ -1430,10 +1594,10 @@ def reset_bwd_gather_launches():
 
 
 def ms_train_config(root: Path, data: Path, name: str, **kw):
-    ms_dense, dtype_name, steps = MS_TRAIN_RUNS[name]
+    ms_dense, dtype_name, steps, log_every = MS_TRAIN_RUNS[name]
     base = dict(mode="train", model_path=str(root / "ms_train_models"), output_path=str(root / "ms_train_rollouts"),
                 run_name=f"smoke_ms_train_{name}", ms_dense=ms_dense, compute_dtype=dtype_name,
-                ntraining_steps=steps, nsave_steps=min(SAVE_EVERY, steps), log_every=min(LOG_EVERY, steps))
+                ntraining_steps=steps, nsave_steps=min(SAVE_EVERY, steps), log_every=log_every)
     return ms_config(data, **{**base, **kw})
 
 
@@ -1448,12 +1612,10 @@ def ms_blocks(graph) -> int:
 
 def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
     """``train_multi_scale.main`` in train mode at the values of
-    configs/taylor2d_multi_scale.yaml for run ``name``: launches of the
-    take kernel and of both backward kernels against the counts the graph
-    asks (per step: 2 gathers per block, one sorted backward per block and
-    one planned backward per dense block; 2 gathers per block per
-    validation rollout step), metrics, checkpoint, and a profile with the
-    step's peak memory (validation resets the run's own peak)."""
+    configs/taylor2d_multi_scale.yaml for run ``name`` (prefetched and
+    captured): launches of the take kernel and of the sorted and planned
+    kernels against the counts the graph asks (see ``expect``), metrics,
+    checkpoint, and ``training_routes`` (COO: the eager step twice)."""
     import torch
 
     from sgnn_tpu_torch.data.loader import load_metadata
@@ -1490,9 +1652,16 @@ def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
                              f"{'dense' if dense else 'COO'} layout")
     blocks, val_blocks = ms_blocks(train_graph), ms_blocks(valid.graphs[0])
     val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
+    rollout_steps = val_steps * n_val
+    # per training step and block: the receiver and sender gathers, and the
+    # take kernel in the aggregation's backward (and COO: over the sender
+    # order); the sorted sum in the aggregation and the receiver backward
+    # (and COO: the sender backward); the plan's backward (dense). Per
+    # validation rollout step and block: the two gathers and the aggregation
     expect = {v: 0 for v in rg.VARIANTS}
-    expect[rg.MODEL_VARIANT] = 2 * blocks * steps + 2 * val_blocks * val_steps * n_val
-    expect.update(bwd_sorted=blocks * steps, bwd_planned=blocks * steps if dense else 0)
+    expect[rg.MODEL_VARIANT] = (3 if dense else 4) * blocks * steps + 2 * val_blocks * rollout_steps
+    expect.update(bwd_sorted=(2 if dense else 3) * blocks * steps + val_blocks * rollout_steps,
+                  bwd_planned=blocks * steps if dense else 0)
     if got != expect:
         raise AssertionError(f"ms train {name}: launches {got}, expected {expect}")
     if result["step"] != steps or not math.isfinite(result["lowest_eval_loss"]):
@@ -1519,7 +1688,7 @@ def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
         val_loss=[r["val/loss"] for r in val_rec], checkpoint=meta["path"], wall_s=wall_s, device=kind,
         nvidia_smi=smi,
     )
-    out["profile"] = profile_training(cfg, card, trainer=tms)
+    out["routes"] = training_routes(f"ms train {name}", cfg, card, tms, repeat_eager=not dense)
     log(f"ms train {name} " + json.dumps(out))
     return out
 
@@ -1566,9 +1735,10 @@ def ms_card_vs_cpu_step(root: Path, data: Path, name: str, device):
                            params={k: v.detach().cpu() for k, v in built.sim.state_dict().items()}, before=before)
         del built
     card, on_cpu = runs["card"], runs["cpu"]
-    if card["bwd"] != {"sorted": blocks, "planned": blocks} or on_cpu["bwd"] != {"sorted": 0, "planned": 0}:
-        raise AssertionError(f"ms card vs CPU step {name}: backward launches {card['bwd']} (card), "
-                             f"{on_cpu['bwd']} (CPU), expected {blocks} of each on the card")
+    # per block: the aggregation's sorted sum and the receiver gather's backward; the plan's backward
+    if card["bwd"] != {"sorted": 2 * blocks, "planned": blocks} or on_cpu["bwd"] != {"sorted": 0, "planned": 0}:
+        raise AssertionError(f"ms card vs CPU step {name}: sorted / planned launches {card['bwd']} (card), "
+                             f"{on_cpu['bwd']} (CPU), expected {2 * blocks} / {blocks} on the card")
     gaps = None
     if bf16:
         gaps = {k: float((g - runs["cpu_f32"]["grads"][k]).abs().max()) for k, g in on_cpu["grads"].items()}
@@ -1751,10 +1921,11 @@ def phase_row_gather_bwd(data: Path, dev):
     return dict(checked=sorted(cases), timed=timed)
 
 
-def bwd_gather_summary(bwd, ms_train):
+def bwd_gather_summary(bwd, ms_train, train_a):
     """The kernel-summary entries of the two backward kernels: times at the
     dense f32 m2m gathers (the training step's; the sorted one's at the COO
-    f32 m2m receivers beside them), launches by path."""
+    f32 m2m receivers beside them), launches by path (the sorted sum's in
+    config A's training too: its sender backward)."""
     entries = []
     for kind, name, case, replaces in (
         ("sorted", "sorted_segment_sum", "m2m_recv_float32", "sgnn_tpu/models/multi_scale.py:243"),
@@ -1762,6 +1933,8 @@ def bwd_gather_summary(bwd, ms_train):
     ):
         main = bwd["timed"][case]
         by_path = {f"ms_train_{n}": r["launches"][f"bwd_{kind}"] for n, r in ms_train.items()}
+        if kind == "sorted":
+            by_path["train_A"] = train_a["launches"]["sorted"]
         entries.append(dict(
             name=name, route="cuda", source="sgnn_tpu_torch/csrc/row_gather_bwd.cu",
             replaces=f"{replaces} (a custom VJP's XLA backward; no Pallas original)",
@@ -1781,10 +1954,11 @@ def bwd_gather_summary(bwd, ms_train):
     return entries
 
 
-def gather_summary(gather, probe, ms_runs):
+def gather_summary(gather, probe, ms_runs, train_a):
     """The kernel-summary entries of the three row-gather kernels: times
     at the dense m2m sender gather (f32), the main path's, and at every
-    timed shape; launches by path."""
+    timed shape; launches by path (the take kernel's in config A's
+    training too: its sender gathers)."""
     from sgnn_tpu_torch.ops import row_gather as rg
 
     main_case = "m2m_senders_float32"
@@ -1792,6 +1966,8 @@ def gather_summary(gather, probe, ms_runs):
     for variant, line in (("loop", 56), ("unroll8", 64), ("take", 74)):
         by_path = {f"probe_{d}": probe[d]["launches"][variant] for d in probe}
         by_path.update({f"ms_{n}": r["launches"][variant] for n, r in ms_runs.items()})
+        if variant == rg.MODEL_VARIANT:
+            by_path["train_A"] = train_a["launches"]["take"]
         res = gather["results"][variant]
         main = res[main_case]
         entries.append(dict(
@@ -1809,6 +1985,25 @@ def gather_summary(gather, probe, ms_runs):
                        for c, r in res.items()},
         ))
     return entries
+
+
+def train_routes_summary(trained, ms_train, smi):
+    """Per training route (A, B, multi-scale dense f32, dense bf16, COO
+    f32), the captured and eager steps' figures from ``training_routes``
+    and the trainer's own logged ms/step (prefetched, captured), in one
+    line."""
+    paths = {f"train_{n}": (t[0]["routes"], t[0]["ms_per_step_11_20"]) for n, t in trained.items()}
+    paths.update({f"ms_train_{n}": (r["routes"], r["ms_per_step_last_log"]) for n, r in ms_train.items()})
+    out = {}
+    for path, (routes, logged) in paths.items():
+        out[path] = {"check": routes["check"], "trainer_logged_ms_per_step": logged}
+        for name in ("captured", "eager"):
+            r = routes[name]
+            out[path][name] = {k: r[k] for k in ("wall_ms_per_step", "device_ms_per_step", "device_idle_share",
+                                                 "kernels_per_step", "host_calls_per_step", "first_call_s",
+                                                 "first_call_peak_memory_mb", "peak_memory_mb", "capture_s")
+                               if k in r}
+    return {"paths": out, "nvidia_smi": smi}
 
 
 def routes_summary(rollouts, ms_runs, smi):
@@ -1893,6 +2088,8 @@ def main() -> int:
             torch.cuda.empty_cache()
         sym_check = sym_gather_check(checks["B"], card)
         torch.cuda.empty_cache()
+        c2 = c2_cost(checks["A"], card)
+        torch.cuda.empty_cache()
 
         # 6. rollout, through predict, from the checkpoints training wrote
         rollouts = {}
@@ -1961,13 +2158,14 @@ def main() -> int:
                 entry["at_rollout_shape"] = {k: res["at_rollout_shape"][k] for k in
                                              ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
             kernels.append(entry)
-    kernels.extend(gather_summary(gather, probe, ms_runs))
-    kernels.extend(bwd_gather_summary(bwd_gather, ms_train))
+    kernels.extend(gather_summary(gather, probe, ms_runs, trained["A"][0]))
+    kernels.extend(bwd_gather_summary(bwd_gather, ms_train, trained["A"][0]))
     log("library " + json.dumps({"index_select": kernel_results["index_select"],
                                  "fixed_batch_losses": fixed, "card_vs_cpu_step": step_checks,
-                                 "sym_gather_backward_check": sym_check,
+                                 "sym_gather_backward_check": sym_check, "c2_cost": c2,
                                  "ms_card_vs_cpu_step": ms_step_checks,
                                  "seconds": time.perf_counter() - t_start}))
+    log("train routes " + json.dumps(train_routes_summary(trained, ms_train, smi)))
     log("routes " + json.dumps(routes_summary(rollouts, ms_runs, smi)))
     print(json.dumps({"kernels": kernels}))
     print(smi)

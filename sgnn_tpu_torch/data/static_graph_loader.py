@@ -120,15 +120,19 @@ def check_sorted_ids(graph, num_nodes: int) -> None:
     """Raise unless a batched graph ([B, ...] leaves) keeps every id the
     sorted backward kernels take ascending once the batch is flattened:
     per sample, in ``[0, num_nodes)`` and non-decreasing (dense ``recv`` and
-    ``tsp_node``; COO receivers with padding at the last node, as
-    ``flatten_ms_graph`` re-points it)."""
+    ``tsp_node``; COO receivers, and COO senders taken in the graph's sender
+    order, with padding at the last node, as ``flatten_ms_graph`` re-points
+    it)."""
     if isinstance(graph, DenseStaticGraph):
         named = [(f"{t}.{f}", getattr(de, f)) for t, de in (("g2m", graph.g2m), ("m2g", graph.m2g),
                                                           *((f"m2m[{i}]", de) for i, de in enumerate(graph.m2m)))
                  for f in ("recv", "tsp_node")]
     else:
-        named = [(f"{t}.receivers", np.where(pe.mask, pe.receivers, num_nodes - 1))
-                 for t, pe in (("g2m", graph.g2m), ("m2m", graph.m2m), ("m2g", graph.m2g))]
+        named = []
+        for t, pe in (("g2m", graph.g2m), ("m2m", graph.m2m), ("m2g", graph.m2g)):
+            named.append((f"{t}.receivers", np.where(pe.mask, pe.receivers, num_nodes - 1)))
+            senders = np.where(pe.mask, pe.senders, num_nodes - 1)
+            named.append((f"{t}.order", np.take_along_axis(senders, pe.order.astype(np.int64), axis=-1)))
     for name, ids in named:
         if ids.size and (ids.min() < 0 or ids.max() >= num_nodes or (np.diff(ids, axis=-1) < 0).any()):
             raise ValueError(f"{name}: ids must lie in [0, {num_nodes}) and be non-decreasing per sample")

@@ -23,7 +23,14 @@ JAX module's ``_dot_wf32``.
 
 With ``rev=(rev_pos, rev_ok)`` (``ops/sym_gather.reverse_edge_positions``
 of a symmetric graph) each layer's sender gather is ``sym_gather``, whose
-backward is a gather in place of ``index_select``'s scatter-add.
+backward is a gather in place of ``index_select``'s scatter-add. Without
+it, where gradients are taken, the senders are sorted once per forward on
+the device (``torch.sort(stable=True)``) and each layer's sender gather is
+``ops/row_gather.ordered_gather`` over that order: the take kernel, whose
+backward adds each node's cotangent rows in index order with the sorted
+segment sum kernel, with no atomics (``index_select``'s backward adds with
+float atomics on the card). A forward taken with no gradients (serving)
+gathers with ``index_select``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from sgnn_tpu_torch.models.encode_process_decode import (
 )
 from sgnn_tpu_torch.nn.core import layer_norm
 from sgnn_tpu_torch.ops.edge_block import fused_edge_block
+from sgnn_tpu_torch.ops.row_gather import ordered_gather
 from sgnn_tpu_torch.ops.sym_gather import sym_gather
 
 
@@ -95,7 +103,10 @@ def _process_decode(
     rev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Processor layers (fused edge block + node update) and decoder."""
-    d = x.shape[-1]
+    d, m = x.shape[-1], x.shape[0]
+    order = None
+    if rev is None and torch.is_grad_enabled():
+        sorted_senders, order = torch.sort(senders.int(), stable=True)  # one order for all layers
     for block in epd._processor.gnn_stacks:
         edge_mlp, edge_ln = block.edge_fn[0], block.edge_fn[1]
         if len(edge_mlp.linears) != 2:
@@ -110,6 +121,8 @@ def _process_decode(
             proj_j = proj_j.to(compute_dtype)
         if rev is not None:
             xj = sym_gather(proj_j, senders, rev[0], rev[1])  # [M*K, H]
+        elif order is not None:
+            xj = ordered_gather(proj_j, senders, order, sorted_senders, m)
         else:
             xj = proj_j.index_select(0, senders)
         w2 = edge_mlp.linears[1]

@@ -15,15 +15,20 @@ lists: ``msg = edge_fn([x_receiver, x_sender, e])``, sum at receivers,
 update runs on ALL N nodes. The first Linear of ``edge_fn`` is applied in
 split form, so the receiver and sender projections are ``[N, H]`` node
 products whose rows are gathered per edge. Every latent-row gather is
-the row-gather kernel, inside the autograd Functions of
-``ops/row_gather``, as JAX's custom VJPs:
+the row-gather kernel, and every sum at receivers the sorted segment sum
+kernel, inside the autograd Functions of ``ops/row_gather``, as JAX's
+custom VJPs; none adds with atomics, so the bits repeat from run to run:
 
   * receivers (ascending): ``sorted_gather``, backward the sorted segment
-    sum kernel; the COO layout's receivers are ascending only once a batch
-    is flattened (``sorted_receivers=True``), else ``indexed_gather``;
+    sum kernel; the COO layout's receivers ascend once a graph is
+    flattened (``flatten_ms_graph``, a batch of one in serving);
   * dense senders: ``planned_gather``, backward the transpose plan's kernel;
-  * COO senders: ``indexed_gather``, backward ``index_add_`` (JAX's plain
-    gather transposes to XLA's unsorted scatter there).
+  * COO senders: ``ordered_gather`` over the graph's sender order
+    (``PaddedEdges.order``), backward the sorted segment sum of the
+    cotangent's rows in that order (JAX's plain gather transposes to XLA's
+    unsorted scatter there);
+  * aggregation at receivers: ``sorted_sum`` (JAX's ``segment_sum`` over
+    receiver-sorted ids), backward a gather.
 
 ``compute_dtype`` (bf16) lowers the edge-sized tensors; aggregation,
 LayerNorm moments, node updates and the prediction head stay f32.
@@ -44,8 +49,7 @@ from sgnn_tpu_torch.models.encode_process_decode import (
     split_first_layer,
 )
 from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
-from sgnn_tpu_torch.ops.row_gather import indexed_gather, planned_gather, sorted_gather
-from sgnn_tpu_torch.ops.segment import coo_segment_sum, segment_sum
+from sgnn_tpu_torch.ops.row_gather import ordered_gather, planned_gather, sorted_gather, sorted_sum
 from sgnn_tpu_torch.physics.multi_scale_graph import DenseEdges, DenseStaticGraph, PaddedEdges, StaticGraph
 
 
@@ -127,13 +131,13 @@ def _agg_weight(block: InteractionNetwork, d: int) -> torch.Tensor:
     return w_agg
 
 
-def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges, compute_dtype=None,
-              sorted_receivers: bool = False):
-    """One interaction step over padded COO edges (``PaddedEdges`` of
-    tensors): padded slots (mask False) add nothing to the aggregation and
-    their latents stay zero. ``sorted_receivers`` asserts the receivers
-    are non-decreasing, padding included (``flatten_ms_graph``'s
-    contract). Returns (new x [N, D], new e [E, D])."""
+def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges, sorted_senders: torch.Tensor,
+              compute_dtype=None):
+    """One interaction step over flattened padded COO edges (``PaddedEdges``
+    of tensors, ``flatten_ms_graph``'s contract: receivers non-decreasing,
+    padding included; ``sorted_senders = senders[order]``): padded slots
+    (mask False) add nothing to the aggregation and their latents stay
+    zero. Returns (new x [N, D], new e [E, D])."""
     d, n = x.shape[-1], x.shape[0]
     dt = e.dtype if compute_dtype is None else compute_dtype
     maskf = edges.mask[:, None].to(dt)
@@ -142,10 +146,10 @@ def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges
     proj_j = x @ w_j
     if compute_dtype is not None:
         proj_j = proj_j.to(dt)
-    gather_i = sorted_gather if sorted_receivers else indexed_gather
-    h = gather_i(proj_i, edges.receivers, n).to(dt) + indexed_gather(proj_j, edges.senders, n) + e @ w_e + b_e
+    xj = ordered_gather(proj_j, edges.senders, edges.order, sorted_senders, n)
+    h = sorted_gather(proj_i, edges.receivers, n).to(dt) + xj + e @ w_e + b_e
     msg = _edge_msg(block, h, maskf)
-    agg = coo_segment_sum(msg.float(), edges.receivers, n)  # f32 accumulation
+    agg = sorted_sum(msg.float(), edges.receivers, n)  # f32 accumulation
     return _node_update(block, x, agg @ _agg_weight(block, d)), (e + msg) * maskf
 
 
@@ -158,20 +162,19 @@ def multi_scale_gnn_apply(
     gnn: MultiScaleGNN,
     node_features: torch.Tensor,  # [N, node_in] full-grid nodes
     edge_features: Dict[str, torch.Tensor],  # {'g2m','m2m','m2g'}: [E_pad, edge_in]
-    graph,  # StaticGraph of tensors
+    graph,  # flattened StaticGraph of tensors (flatten_ms_graph)
     compute_dtype: Optional[torch.dtype] = None,
-    sorted_receivers: bool = False,
 ) -> torch.Tensor:
-    """COO forward; returns [N, node_out]. ``sorted_receivers``: every
-    receiver list is non-decreasing, padding included (a flattened batch)."""
+    """COO forward over a flattened graph; returns [N, node_out]."""
     x = mlp_ln_apply(gnn.grid_node_encoder, node_features)
     e_g2m = _encode_edges(gnn, "g2m_edge_encoder", edge_features["g2m"], graph.g2m.mask, compute_dtype)
     e_m2m = _encode_edges(gnn, "m2m_edge_encoder", edge_features["m2m"], graph.m2m.mask, compute_dtype)
     e_m2g = _encode_edges(gnn, "m2g_edge_encoder", edge_features["m2g"], graph.m2g.mask, compute_dtype)
-    x, _ = _interact(gnn.g2m_block, x, e_g2m, graph.g2m, compute_dtype, sorted_receivers)
+    s_g2m, s_m2m, s_m2g = (pe.senders.index_select(0, pe.order) for pe in graph)
+    x, _ = _interact(gnn.g2m_block, x, e_g2m, graph.g2m, s_g2m, compute_dtype)
     for block in gnn.m2m_blocks:
-        x, e_m2m = _interact(block, x, e_m2m, graph.m2m, compute_dtype, sorted_receivers)
-    x, _ = _interact(gnn.m2g_block, x, e_m2g, graph.m2g, compute_dtype, sorted_receivers)
+        x, e_m2m = _interact(block, x, e_m2m, graph.m2m, s_m2m, compute_dtype)
+    x, _ = _interact(gnn.m2g_block, x, e_m2g, graph.m2g, s_m2g, compute_dtype)
     return gnn.prediction_head(x)
 
 
@@ -186,8 +189,9 @@ def _interact_dense_scales(
     scale; a single set is ``_interact_dense``). The edge update runs per
     set on ``[R, K, .]`` slots; each set's masked slot sum goes through
     the node MLP's aggregate block (f32 products of the edge dtype's
-    values, summed in f32) and ONE segment sum writes it back to the full
-    grid; the node update runs once on the sum over the sets.
+    values, summed in f32) and ONE sorted sum over the ascending receiver
+    rows writes it back to the full grid; the node update runs once on the
+    sum over the sets.
     Returns (new x [N, D], new edge latents per set)."""
     d, n = x.shape[-1], x.shape[0]
     dt = es[0].dtype if compute_dtype is None else compute_dtype
@@ -207,7 +211,7 @@ def _interact_dense_scales(
         msg = _edge_msg(block, h, maskf)
         new_es.append((e + msg) * maskf)
         agg_rows = msg.float().sum(dim=1) @ w_agg  # [R, D]
-        agg_hn = agg_hn + segment_sum(agg_rows, de.recv, n)
+        agg_hn = agg_hn + sorted_sum(agg_rows, de.recv, n)
     return _node_update(block, x, agg_hn), new_es
 
 
@@ -272,14 +276,17 @@ def flatten_ms_graph(graph: StaticGraph, n: int) -> StaticGraph:
     Padded slots are re-pointed at their graph's last node ((b+1)*n - 1;
     their messages are masked), which keeps the receivers globally
     non-decreasing: valid edges are receiver-sorted per graph
-    (``pad_edges``) and graph b+1 starts above graph b's last node."""
+    (``pad_edges``) and graph b+1 starts above graph b's last node. Each
+    graph's sender order moves by b*E_pad, and the flat senders taken in
+    the flat order ascend for the same reason."""
 
     def flat(pe):
-        b = pe.senders.shape[0]
+        b, e = pe.senders.shape
         off = (torch.arange(b, dtype=pe.senders.dtype, device=pe.senders.device) * n)[:, None]
         last = off + (n - 1)
         s = torch.where(pe.mask, pe.senders + off, last).reshape(-1)
         r = torch.where(pe.mask, pe.receivers + off, last).reshape(-1)
-        return PaddedEdges(senders=s, receivers=r, mask=pe.mask.reshape(-1))
+        eoff = (torch.arange(b, dtype=pe.order.dtype, device=pe.order.device) * e)[:, None]
+        return PaddedEdges(senders=s, receivers=r, mask=pe.mask.reshape(-1), order=(pe.order + eoff).reshape(-1))
 
     return StaticGraph(g2m=flat(graph.g2m), m2m=flat(graph.m2m), m2g=flat(graph.m2g))

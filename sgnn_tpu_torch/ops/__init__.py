@@ -1,2 +1,2 @@
-"""Radius search, the fused edge block, the row gather and segment sums
+"""Radius search, the fused edge block, the row gather and its sums
 (port of ``sgnn_tpu/ops`` and of the gather probe's kernels)."""

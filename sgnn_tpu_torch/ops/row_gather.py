@@ -22,19 +22,25 @@ and an index tensor of any shape (int32 or int64) and returns
 by ``MODEL_VARIANT``, which ``chip_smoke.py`` timed fastest at the model's
 shapes (PERF.md). ``LAUNCHES[variant]`` counts each kernel's launches.
 
-The model's gathers are ``torch.autograd.Function``s whose forward is
-``row_gather`` (the counterparts of the JAX model's custom VJPs,
-``sgnn_tpu/models/multi_scale.py``):
+The model's gathers and sums are ``torch.autograd.Function``s around
+``row_gather`` and ``sorted_segment_sum`` (the counterparts of the JAX
+model's custom VJPs, ``sgnn_tpu/models/multi_scale.py``, and of its sums
+over receiver-sorted ids); none of them adds with atomics, so their bits
+repeat:
 
   * ``sorted_gather`` (``_sorted_gather``): idx ascending; its backward is
     ``sorted_segment_sum``;
   * ``planned_gather`` (``_planned_gather``): its backward is
     ``planned_gather_bwd``, the masked slot sum over the static transpose
     plan (``DenseEdges.tsp_*``), then the sum of the plan rows per node;
-  * ``indexed_gather``: any indices; its backward is ``ops/segment``'s
-    ``segment_sum`` on ``index_add_`` (float atomics on the card, in no
-    fixed order), as JAX's plain ``table[idx]`` transposes to XLA's
-    unsorted scatter. The COO layout's sender gathers take it.
+  * ``ordered_gather``: any indices, with ``order``, their stable sort,
+    and ``idx[order]``; its backward is ``sorted_segment_sum`` of the
+    cotangent's rows taken in that order (``row_gather(g, order)``). The
+    COO layout's sender gathers (the order built with the graph on the
+    host) and config A's sender gathers (sorted on the device) take it;
+  * ``sorted_sum``: ``sorted_segment_sum`` over ascending ids (an
+    aggregation at receivers); its backward is ``row_gather(g, ids)``,
+    ``_SortedGather`` turned around.
 
 The two backwards are CUDA kernels of ``csrc/row_gather_bwd.cu``, with no
 atomics, so two launches give the same bits, and their plain versions
@@ -51,10 +57,11 @@ the kernels' order:
     slots in slot order, then plan rows in row order, f32 from 0, rounded
     once.
 
-Ids must be ascending (``recv``, ``tsp_node`` and flattened COO receivers
-are by construction; the training batcher checks it on the host, the
-kernels do not). ``BWD_LAUNCHES["sorted"|"planned"]`` counts the wrappers'
-launches, one per call.
+Ids must be ascending (``recv``, ``tsp_node``, flattened COO receivers and
+a sender order's ``idx[order]`` are by construction; the training batcher
+checks the graph's on the host, the kernels do not).
+``BWD_LAUNCHES["sorted"|"planned"]`` counts the wrappers' launches, one per
+call, whether a backward or (the sorted sum) an aggregation called it.
 """
 from __future__ import annotations
 
@@ -63,7 +70,6 @@ import ctypes
 import torch
 
 from sgnn_tpu_torch.kernels import build
-from sgnn_tpu_torch.ops.segment import segment_sum
 
 KERNEL = "row_gather"
 VARIANTS = ("loop", "unroll8", "take")
@@ -105,7 +111,7 @@ def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
     if table.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "row_gather has no backward: a gather that needs one goes through sorted_gather, "
-            "planned_gather or indexed_gather; or call it under torch.no_grad()"
+            "planned_gather or ordered_gather; or call it under torch.no_grad()"
         )
 
 
@@ -204,13 +210,61 @@ def sorted_segment_sum_reference(g: torch.Tensor, idx: torch.Tensor, num_nodes: 
     """The plain version of ``sorted_segment_sum``: each run of ids cut at
     the multiples of ``sorted_chunk`` into pieces, each piece summed in
     index order from 0, then a run's pieces in chunk order from 0 (a run
-    inside one chunk: its index-order sum, 0 + s adding no bit)."""
+    inside one chunk: its index-order sum, 0 + s adding no bit). Its loops
+    are bounded by the shapes alone, so it reads nothing back from the
+    device (the serving step takes it on the CPU)."""
     ids = idx.reshape(-1).long()
-    starts = torch.ones_like(ids, dtype=torch.bool)
-    pos = torch.arange(ids.numel(), device=ids.device)
-    starts[1:] = (ids[1:] != ids[:-1]) | (pos[1:] % sorted_chunk(ids.numel(), num_nodes) == 0)
-    pieces = _ordered_segment_sum(g.float(), torch.cumsum(starts, 0) - 1, int(starts.sum()))
-    return _ordered_segment_sum(pieces, ids[starts], num_nodes).to(g.dtype)
+    m, w, dev = ids.numel(), g.shape[1], g.device
+    out = torch.zeros((num_nodes, w), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out.to(g.dtype)
+    chunk = sorted_chunk(m, num_nodes)
+    n_chunks = -(-m // chunk)
+    pad = n_chunks * chunk - m
+    # -1 pads the last chunk: a run of its own or part of a run of ids < 0, written nowhere
+    cid = torch.cat([ids, ids.new_full((pad,), -1)]).reshape(n_chunks, chunk)
+    x = torch.cat([g.float(), g.new_zeros((pad, w), dtype=torch.float32)]).reshape(n_chunks, chunk, w)
+    starts = torch.ones_like(cid, dtype=torch.bool)  # a piece starts at a chunk's edge or a new id
+    starts[:, 1:] = cid[:, 1:] != cid[:, :-1]
+    ends = torch.ones_like(starts)
+    ends[:, :-1] = starts[:, 1:]
+    scan = torch.empty_like(x)  # each piece's running sum from 0, in index order
+    acc = torch.zeros((n_chunks, w), dtype=torch.float32, device=dev)
+    for j in range(chunk):
+        acc = torch.where(starts[:, j, None], 0.0, acc) + x[:, j]
+        scan[:, j] = acc
+    # where a run crosses a chunk's edge: the first piece of each chunk (its
+    # head) and the last (its tail), added in chunk order from 0
+    flat = cid.reshape(-1)
+    cont = torch.zeros(n_chunks + 1, dtype=torch.bool, device=dev)  # chunk c continues chunk c - 1's run
+    cont[1:-1] = flat[chunk::chunk] == flat[chunk - 1:-1:chunk]
+    head_end = torch.argmax(ends.int(), dim=1)  # the first maximum
+    head = scan[torch.arange(n_chunks, device=dev), head_end]
+    single = head_end == chunk - 1  # the head piece fills its chunk
+    tail = scan[:, -1]
+    carried = torch.zeros(w, dtype=torch.float32, device=dev)
+    finals = torch.empty((n_chunks, w), dtype=torch.float32, device=dev)
+    # only the chunks a run crosses into or out of matter; on the CPU every
+    # chunk is walked, so nothing is read back (the serving step on the CPU
+    # takes this version), on the card (checks only) just those
+    walk = range(n_chunks) if dev.type == "cpu" else torch.nonzero(cont[:-1] | cont[1:]).flatten().tolist()
+    for c in walk:
+        v = torch.where(cont[c], carried + head[c], head[c])
+        finals[c] = v
+        carried = torch.where(single[c], v, tail[c])
+    # a piece ends its run unless it closes a chunk that the next continues;
+    # it started the run unless it is the head of a continued chunk
+    pos = torch.arange(n_chunks * chunk, device=dev)
+    c_of, j_of = pos // chunk, pos % chunk
+    run_end = ends.reshape(-1) & ~((j_of == chunk - 1) & cont[c_of + 1])
+    run_start = ~(cont[c_of] & (j_of == head_end[c_of]))
+    inside = run_end & run_start & (flat >= 0) & (flat < num_nodes)
+    out[flat[inside]] = scan.reshape(-1, w)[inside]
+    crossing = cont[:-1] & ~(single & cont[1:])  # a continued run whose head piece ends it
+    first = cid[:, 0]
+    sel = crossing & (first >= 0) & (first < num_nodes)
+    out[first[sel]] = finals[sel]
+    return out.to(g.dtype)
 
 
 def planned_gather_bwd_reference(
@@ -355,17 +409,30 @@ class _PlannedGather(torch.autograd.Function):
         return d_table, None, None, None, None, None
 
 
-class _IndexedGather(torch.autograd.Function):
+class _OrderedGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx, num_nodes):
-        ctx.save_for_backward(idx)
+    def forward(ctx, table, idx, order, sorted_idx, num_nodes):
+        ctx.save_for_backward(order, sorted_idx)
         ctx.num_nodes = num_nodes
         return row_gather(table, idx)
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        return segment_sum(_rows(g), idx.reshape(-1), ctx.num_nodes), None, None
+        order, sorted_idx = ctx.saved_tensors
+        d_table = sorted_segment_sum(row_gather(_rows(g), order), sorted_idx, ctx.num_nodes)
+        return d_table, None, None, None, None
+
+
+class _SortedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, ids, num_nodes):
+        ctx.save_for_backward(ids)
+        return sorted_segment_sum(data.contiguous(), ids, num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return row_gather(g.contiguous(), ids), None, None
 
 
 def sorted_gather(table: torch.Tensor, idx: torch.Tensor, num_nodes: int) -> torch.Tensor:
@@ -389,8 +456,22 @@ def planned_gather(
     return _PlannedGather.apply(table, senders, tsp_rows, tsp_node, tsp_mask, num_nodes)
 
 
-def indexed_gather(table: torch.Tensor, idx: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    """``table[idx]`` for any indices; its backward is ``segment_sum``
-    (``index_add_``)."""
+def ordered_gather(
+    table: torch.Tensor, idx: torch.Tensor, order: torch.Tensor, sorted_idx: torch.Tensor, num_nodes: int
+) -> torch.Tensor:
+    """``table[idx]`` for any indices, given ``order``, a stable sort of
+    the flat idx, and ``sorted_idx = idx.reshape(-1)[order]`` (ascending);
+    its backward is ``sorted_segment_sum(row_gather(g, order), sorted_idx)``:
+    each node's cotangent rows added in index order, with no atomics."""
     _check_table(table, num_nodes)
-    return _IndexedGather.apply(table, idx, num_nodes)
+    if order.shape != (idx.numel(),) or sorted_idx.shape != order.shape:
+        raise ValueError(f"ordered_gather: {idx.numel()} ids, order {tuple(order.shape)}, "
+                         f"sorted ids {tuple(sorted_idx.shape)}")
+    return _OrderedGather.apply(table, idx, order, sorted_idx, num_nodes)
+
+
+def sorted_sum(data: torch.Tensor, ids: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """``out[n] = sum of data[i] over ids[i] == n`` -> ``[num_nodes, W]``
+    for data ``[M, W]`` and ascending ids, differentiable: the forward is
+    ``sorted_segment_sum``, the backward ``row_gather(g, ids)``."""
+    return _SortedSum.apply(data, ids, num_nodes)

@@ -21,8 +21,10 @@ the trajectory's length and its capture costs one step:
   * the first call on the card runs its first step eagerly on a side
     stream (the warm-up: the kernels are built, cuBLAS makes its handles
     and every cache is filled, so none of that happens under capture),
-    then captures ``body`` and replays it for the other steps. A capture
-    that fails raises: nothing retreats to the eager loop;
+    then captures ``body`` (in the ``thread_local`` error mode: the
+    trainers' validation captures while their prefetcher's thread pins and
+    copies batches) and replays it for the other steps. A capture that
+    fails raises: nothing retreats to the eager loop;
   * on CPU tensors ``body`` runs eagerly on the same buffers, so the CPU
     tests drive the same code; ``roll(..., capture=False)`` is the eager
     loop, kept for comparisons.
@@ -213,8 +215,8 @@ class CapturedStep:
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
 
-        def capture():
-            with torch.cuda.device(self.device), torch.cuda.graph(graph):
+        def capture():  # thread_local: the training prefetcher's thread may stage a batch meanwhile
+            with torch.cuda.device(self.device), torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self.body()
 
         t0 = time.perf_counter()

@@ -19,7 +19,9 @@ deformation):
 
 The radius search is scipy's cKDTree (the JAX module's fallback branch;
 its native C++ search gives the same edges). Arrays are numpy; the
-simulator moves them to the device once per trajectory.
+simulator moves them to the device once per trajectory. ``PaddedEdges``
+also carries the sender order (``sender_order``), built here once per
+trajectory, which the port's deterministic sender-gather backward reads.
 """
 
 from __future__ import annotations
@@ -143,11 +145,23 @@ def create_all_edges(cfg: MultiScaleConfig, grid_positions: np.ndarray) -> dict:
 
 
 class PaddedEdges(NamedTuple):
-    """Fixed-size COO edges: receiver-sorted with a validity mask."""
+    """Fixed-size COO edges: receiver-sorted with a validity mask, and the
+    sender order (``sender_order``) that the sender gather's backward
+    reads (the port's own field: JAX's backward scatters with XLA)."""
 
     senders: np.ndarray  # int32[E_pad]
     receivers: np.ndarray  # int32[E_pad]
     mask: np.ndarray  # bool[E_pad]
+    order: Optional[np.ndarray] = None  # int32[E_pad]
+
+
+def sender_order(senders: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """int32[..., E_pad]: the stable argsort of the valid senders, padded slots
+    last in slot order. Padding is re-pointed at the graph's last node once
+    the graph is flattened (``flatten_ms_graph``), at or above every valid
+    sender, so the flattened senders taken in this order ascend."""
+    key = np.where(mask, np.asarray(senders, np.int64), np.iinfo(np.int64).max)
+    return np.argsort(key, axis=-1, kind="stable").astype(np.int32)
 
 
 def pad_edges(edges: CooEdges, e_pad: int) -> PaddedEdges:
@@ -161,7 +175,7 @@ def pad_edges(edges: CooEdges, e_pad: int) -> PaddedEdges:
     s[:e] = edges.senders[order]
     r[:e] = edges.receivers[order]
     m[:e] = True
-    return PaddedEdges(s, r, m)
+    return PaddedEdges(s, r, m, sender_order(s, m))
 
 
 class StaticGraph(NamedTuple):

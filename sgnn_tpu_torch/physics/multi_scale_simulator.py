@@ -43,7 +43,13 @@ from sgnn_tpu_torch.models.multi_scale import (
 )
 from sgnn_tpu_torch.nn.core import Embedding
 from sgnn_tpu_torch.physics import captured_step
-from sgnn_tpu_torch.physics.multi_scale_graph import DenseStaticGraph, MultiScaleConfig, StaticGraph
+from sgnn_tpu_torch.physics.multi_scale_graph import (
+    DenseStaticGraph,
+    MultiScaleConfig,
+    PaddedEdges,
+    StaticGraph,
+    sender_order,
+)
 from sgnn_tpu_torch.physics.rollout import EROSIONAL_PARTICLE_ID, advance_window, cumulative_rmse, per_step_rmse
 from sgnn_tpu_torch.physics.simulator import (
     _DTYPES,
@@ -145,9 +151,12 @@ def multi_scale_simulator_init(
 
 def graph_to(graph, device: torch.device):
     """A StaticGraph or DenseStaticGraph of numpy arrays (or tensors) as
-    the same graph of tensors on ``device``."""
+    the same graph of tensors on ``device``; COO edges built without their
+    sender order get it here (``sender_order``, on the host)."""
 
     def edges(e):
+        if isinstance(e, PaddedEdges) and e.order is None:
+            e = e._replace(order=sender_order(*(torch.as_tensor(a).cpu().numpy() for a in (e.senders, e.mask))))
         return type(e)(*(torch.as_tensor(a, device=device) for a in e))
 
     if isinstance(graph, DenseStaticGraph):
@@ -209,7 +218,12 @@ def ms_encoder_preprocess(sim, cfg, stats, position_sequence, particle_types, gr
 
 def _forward(sim, cfg, stats, position_sequence, particle_types, graph) -> Tuple[torch.Tensor, torch.Tensor]:
     """(normalised accelerations [N, dim], strain [N]) through the layout
-    the graph has (dense or COO)."""
+    the graph has (dense or COO). A COO graph goes through the flattening
+    of a batch of one (``flatten_ms_graph``: padding at the last node, so
+    the receivers ascend and the sender order holds), as training's does."""
+    if isinstance(graph, StaticGraph):
+        graph = flatten_ms_graph(StaticGraph(*(PaddedEdges(*(a[None] for a in e)) for e in graph)),
+                                 position_sequence.shape[0])
     node_f, edge_f = ms_encoder_preprocess(sim, cfg, stats, position_sequence, particle_types, graph)
     apply = multi_scale_gnn_apply_dense if isinstance(graph, DenseStaticGraph) else multi_scale_gnn_apply
     pred = apply(sim._multi_scale_gnn, node_f, edge_f, graph, compute_dtype=cfg.torch_compute_dtype)
@@ -253,7 +267,7 @@ def ms_forward_batched(
     if dense:
         pred = multi_scale_gnn_apply_dense(gnn, nf, ef, flat_graph, compute_dtype=dt)
     else:
-        pred = multi_scale_gnn_apply(gnn, nf, ef, flat_graph, compute_dtype=dt, sorted_receivers=True)
+        pred = multi_scale_gnn_apply(gnn, nf, ef, flat_graph, compute_dtype=dt)
     pred = pred.reshape(b, n, -1)
     return pred[..., : cfg.dim], pred[..., -1]
 

@@ -11,7 +11,9 @@ map of the iid draws: a matmul against the constant integration matrix
 
 on draws laid out as ``[..., V*dim]``, as in the JAX module. The draws
 come from a ``torch.Generator`` (another stream than JAX's); ``z`` lets a
-caller pass its own draws, so that both packages give the same noise.
+caller pass its own draws, so that both packages give the same noise, or
+a static buffer that ``draw_into`` fills (the captured training step draws
+outside its CUDA graph, on the same stream as the eager step).
 """
 
 from __future__ import annotations
@@ -31,6 +33,18 @@ def integration_matrix(n_steps: int, dim: int, device=None) -> torch.Tensor:
     return torch.einsum("ut,cd->uctd", counts, eye).reshape(v * dim, n_steps * dim)
 
 
+def draw_shape(shape: tuple) -> tuple:
+    """The shape of the iid draws ``z`` behind noise of ``shape``:
+    ``shape[:-2] + ((S - 1) * dim,)``."""
+    return tuple(shape[:-2]) + ((shape[-2] - 1) * shape[-1],)
+
+
+def draw_into(z: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Fill ``z`` with standard-normal draws from ``generator``, in place:
+    the numbers ``torch.randn(z.shape, generator=generator)`` draws."""
+    return torch.randn(z.shape, generator=generator, out=z)
+
+
 def random_walk_position_noise(
     shape: tuple,  # (N, S, dim) or (B, N, S, dim)
     std: float,
@@ -48,9 +62,9 @@ def random_walk_position_noise(
     v = n_steps - 1
     lead = tuple(shape[:-2])
     if z is None:
-        z = torch.randn(lead + (v * dim,), generator=generator, device=device)
-    elif tuple(z.shape) != lead + (v * dim,):
-        raise ValueError(f"z has shape {tuple(z.shape)}, expected {lead + (v * dim,)}")
+        z = torch.randn(draw_shape(shape), generator=generator, device=device)
+    elif tuple(z.shape) != draw_shape(shape):
+        raise ValueError(f"z has shape {tuple(z.shape)}, expected {draw_shape(shape)}")
     z = z.to(device=device, dtype=torch.float32) * (std / v**0.5)
     w = integration_matrix(n_steps, dim, device=z.device)
     return (z @ w).reshape(lead + (n_steps, dim))

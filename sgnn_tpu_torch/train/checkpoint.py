@@ -9,6 +9,11 @@ Port of ``sgnn_tpu/train/checkpoint.py`` with ``torch.save`` /
 Names are the same (``model-best-XXXXXX``, ``model-final-XXXXXX``) and
 ``checkpoint_meta.json`` records the latest one with its step and best
 validation loss. Tensors are stored on the CPU.
+
+``load_optimizer_state`` restores Adam's state into an optimizer of either
+form: the card's capturable Adam (its step counts and lr on the device)
+or the CPU's (step counts on the CPU, a float lr), whichever form wrote
+the checkpoint; the optimizer keeps its own lr and flags.
 """
 
 from __future__ import annotations
@@ -39,6 +44,31 @@ def train_state(sim: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer]
         "opt_state": None if optimizer is None else optimizer.state_dict(),
         "step": int(step),
     }
+
+
+# the settings of an optimizer group that its form fixes, not its checkpoint
+_OWN_GROUP_KEYS = ("lr", "capturable", "foreach", "fused", "differentiable")
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, opt_state: dict) -> None:
+    """``optimizer.load_state_dict(opt_state)`` for a state written by either
+    form of Adam. ``load_state_dict`` takes every group setting from the
+    checkpoint; the lr (a device tensor that a captured step reads in
+    place, or a float) and the capturable / foreach / fused flags are set
+    back to this optimizer's own, and each step count is put where this
+    form keeps it: an f32 tensor on the parameter's device when capturable,
+    on the CPU otherwise."""
+    own = [{k: g[k] for k in _OWN_GROUP_KEYS if k in g} for g in optimizer.param_groups]
+    optimizer.load_state_dict(opt_state)
+    for group, keep in zip(optimizer.param_groups, own):
+        group.update(keep)
+    for group in optimizer.param_groups:
+        capturable = group.get("capturable", False)
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                step = float(state["step"])
+                state["step"] = torch.tensor(step, dtype=torch.float32, device=p.device if capturable else "cpu")
 
 
 class CheckpointManager:

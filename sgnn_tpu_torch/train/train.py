@@ -14,12 +14,18 @@ validation take), ``evaluate_split``, ``predict`` and the CLI::
 Each training step draws random-walk noise from a ``torch.Generator``
 seeded from ``cfg.seed``, runs the flat forward (every layer's edge stage
 is the fused edge-block kernel, its backward the edge-block backward
-kernel), takes the masked position + strain loss, its gradients, and one
-``torch.optim.Adam`` update at ``lr = sched(step)``, the step counted
-before the update as optax does. Best-only checkpoints on the validation
-rollout loss, a final checkpoint when no validation ran or on interrupt,
-resume from ``model_file``. Data-parallel, graph-parallel and the graph
-audit are not ported yet (ROADMAP.md, Queue A items 6 and 8).
+kernel; the sender gathers sorted once per forward so that their
+backward adds with no atomics), takes the masked position + strain loss,
+its gradients, and one ``torch.optim.Adam`` update at ``lr = sched(step)``,
+the step counted before the update as optax does. On the card the
+batches come through ``data/prefetch.DevicePrefetcher`` (depth 2, as
+JAX's trainer) and the step is captured in a CUDA graph and replayed
+(``train/captured_train_step.TrainStep``; Adam is capturable, its lr a
+device tensor); ``inner_steps`` are that many replays. Best-only
+checkpoints on the validation rollout loss, a final checkpoint when no
+validation ran or on interrupt, resume from ``model_file``. Data-parallel,
+graph-parallel and the graph audit are not ported yet (ROADMAP.md, Queue
+A items 6 and 8).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from sgnn_tpu_torch.data.loader import SampleBatcher, TrajectoryLoader, load_metadata
-from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
 from sgnn_tpu_torch.physics.rollout import rollout as rollout_fn
 from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
@@ -46,7 +52,8 @@ from sgnn_tpu_torch.physics.simulator import (
     predict_accelerations_batched,
     simulator_init,
 )
-from sgnn_tpu_torch.train.checkpoint import CheckpointManager, train_state
+from sgnn_tpu_torch.train.captured_train_step import TrainStep
+from sgnn_tpu_torch.train.checkpoint import CheckpointManager, load_optimizer_state, train_state
 from sgnn_tpu_torch.train.config import TrainConfig, load_config
 from sgnn_tpu_torch.train.metrics import MetricLogger
 from sgnn_tpu_torch.utils.device import Device, resolve_device
@@ -54,6 +61,7 @@ from sgnn_tpu_torch.utils.resource_monitor import ResourceMonitor
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8  # optax.adam's defaults
+PREFETCH_DEPTH = 2  # batches staged ahead, as JAX's trainers
 
 
 def simulator_config_from(cfg: TrainConfig, metadata: dict) -> SimulatorConfig:
@@ -112,9 +120,17 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return sched
 
 
-def make_optimizer(sim: LearnedSimulator, cfg: TrainConfig) -> torch.optim.Adam:
-    """Adam with optax's defaults; ``make_train_step`` sets its lr."""
-    return torch.optim.Adam(sim.parameters(), lr=lr_schedule(cfg)(0), betas=ADAM_BETAS, eps=ADAM_EPS)
+def make_optimizer(sim: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam:
+    """Adam with optax's defaults; the training step sets its lr. On the
+    card it is capturable (step counts and lr on the device, so that its
+    update can be captured in a CUDA graph); capturable Adam takes device
+    tensors only, so the CPU keeps the default one, with a float lr."""
+    lr = lr_schedule(cfg)(0)
+    device = next(sim.parameters()).device
+    if device.type == "cuda":
+        return torch.optim.Adam(sim.parameters(), lr=torch.tensor(lr, device=device), betas=ADAM_BETAS,
+                                eps=ADAM_EPS, capturable=True)
+    return torch.optim.Adam(sim.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -128,12 +144,13 @@ def make_train_step(
     cfg: TrainConfig,
     optimizer: torch.optim.Optimizer,
     generator: Optional[torch.Generator] = None,
-) -> Callable:
+) -> TrainStep:
     """The step ``(batch, step, noise=None) -> metrics``: updates ``sim``'s
-    parameters in place through ``optimizer``. ``step`` is the count of
-    updates before this one (the schedule's argument); ``noise`` replaces
-    the draw from ``generator`` (the parity tests inject JAX's). Metrics
-    are 0-d tensors left on the device."""
+    parameters in place through ``optimizer``, captured in a CUDA graph on
+    the card (``TrainStep``). ``step`` is the count of updates before this
+    one (the schedule's argument); ``noise`` replaces the draw from
+    ``generator`` (the parity tests inject JAX's). Metrics are 0-d tensors
+    left on the device."""
 
     def loss_fn(batch, noise):
         pred_acc, target_acc, pred_strain = predict_accelerations_batched(
@@ -158,33 +175,7 @@ def make_train_step(
             aux["train/loss-z"] = loss_xy[2]
         return loss, aux
 
-    return optimizer_step(loss_fn, optimizer, cfg, generator)
-
-
-def optimizer_step(
-    loss_fn: Callable, optimizer: torch.optim.Optimizer, cfg: TrainConfig, generator: Optional[torch.Generator] = None
-) -> Callable:
-    """The step ``(batch, step, noise=None) -> metrics`` around
-    ``loss_fn(batch, noise) -> (loss, aux)``: random-walk noise drawn from
-    ``generator`` unless given, the loss's gradients, and one update at
-    ``lr = sched(step)``, the step counted before the update as optax does."""
-    sched = lr_schedule(cfg)
-
-    def step_fn(batch, step: int, noise: Optional[torch.Tensor] = None):
-        if noise is None:
-            noise = random_walk_position_noise(
-                tuple(batch["positions"].shape), cfg.noise_std, generator=generator,
-                device=batch["positions"].device,
-            )
-        optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(batch, noise)
-        loss.backward()
-        for group in optimizer.param_groups:
-            group["lr"] = sched(step)
-        optimizer.step()
-        return {"train/loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
-
-    return step_fn
+    return TrainStep(loss_fn, optimizer, lr_schedule(cfg), cfg.noise_std, generator)
 
 
 @dataclass
@@ -197,7 +188,7 @@ class Training:
     sim_cfg: object
     stats: NormStats
     optimizer: torch.optim.Adam
-    step_fn: Callable
+    step_fn: TrainStep
     batcher: SampleBatcher
 
 
@@ -289,7 +280,7 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
         state, meta = ckpt.restore(cfg.model_file, map_location=dev)
         sim.load_state_dict(state["params"], strict=True)
         if state["opt_state"] is not None:
-            optimizer.load_state_dict(state["opt_state"])
+            load_optimizer_state(optimizer, state["opt_state"])
         step = int(state["step"])
         lowest_eval_loss = meta.get("lowest_eval_loss") or float("inf")
         print(f"resumed from {cfg.model_file} at step {step}")
@@ -307,13 +298,13 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
     )
 
     logger = MetricLogger(ckpt_dir, use_wandb=cfg.log, project=cfg.project_name, run_name=cfg.run_name)
-    source = batcher.epochs()
+    source = DevicePrefetcher(batcher.epochs(), depth=PREFETCH_DEPTH, device=dev)
     interrupted = False
     t_last = time.perf_counter()
     try:
         while step < cfg.ntraining_steps:
-            for _ in range(inner):  # inner_steps: a plain loop of single steps
-                metrics = train_step(batch_to_device(next(source), dev), step)
+            for _ in range(inner):  # inner_steps: replays of the captured step, each on its own batch
+                metrics = train_step(next(source), step)
                 step += 1
 
             if step % cfg.log_every == 0:
@@ -362,6 +353,8 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
         interrupted = True  # the reference saves a fallback checkpoint on interrupt
         print("training interrupted")
     finally:
+        source.close()
+        train_step.close()
         logger.close()
 
     if interrupted or lowest_eval_loss == float("inf"):

@@ -15,10 +15,12 @@ every latent-row gather is the row-gather kernel, its backward the sorted
 segment sum or the transpose plan's kernel), takes the masked position +
 strain loss, its gradients, and one ``torch.optim.Adam`` update at
 ``lr = sched(step)`` (optax's defaults, ``train.train.make_optimizer``).
-``inner_steps`` runs as a plain loop of single steps; batches are copied
-to the device synchronously. Best-only checkpoints on the validation
-rollout loss, a final one when no validation ran or on interrupt, resume
-from ``model_file``.
+On the card the batches, their static graphs included, come through
+``data/prefetch.DevicePrefetcher`` and the step is captured in a CUDA
+graph and replayed (``train/captured_train_step.TrainStep``), as in the
+single-scale trainer; ``inner_steps`` are that many replays. Best-only
+checkpoints on the validation rollout loss, a final one when no
+validation ran or on interrupt, resume from ``model_file``.
 
 ``predict`` restores the simulator from a train-state checkpoint
 (``{"params", "opt_state", "step"}``, ``train/checkpoint.py``), builds one
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from sgnn_tpu_torch.data.loader import load_metadata
+from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
 from sgnn_tpu_torch.data.static_graph_loader import MultiScaleSampleBatcher, MultiScaleTrajectoryLoader
 from sgnn_tpu_torch.physics.multi_scale_simulator import (
     MultiScaleSimulator,
@@ -54,10 +57,11 @@ from sgnn_tpu_torch.physics.multi_scale_simulator import (
     multi_scale_simulator_init,
 )
 from sgnn_tpu_torch.physics.simulator import NormStats, make_norm_stats
-from sgnn_tpu_torch.train.checkpoint import CheckpointManager, train_state
+from sgnn_tpu_torch.train.captured_train_step import TrainStep
+from sgnn_tpu_torch.train.checkpoint import CheckpointManager, load_optimizer_state, train_state
 from sgnn_tpu_torch.train.config import TrainConfig, load_config
 from sgnn_tpu_torch.train.metrics import MetricLogger
-from sgnn_tpu_torch.train.train import Training, lr_schedule, make_optimizer, optimizer_step
+from sgnn_tpu_torch.train.train import PREFETCH_DEPTH, Training, lr_schedule, make_optimizer
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 from sgnn_tpu_torch.utils.resource_monitor import ResourceMonitor
 
@@ -92,9 +96,10 @@ def make_train_step(
     cfg: TrainConfig,
     optimizer: torch.optim.Optimizer,
     generator: Optional[torch.Generator] = None,
-) -> Callable:
+) -> TrainStep:
     """The step ``(batch, step, noise=None) -> metrics``: updates ``sim``'s
-    parameters in place through ``optimizer``. ``step`` is the count of
+    parameters in place through ``optimizer``, captured in a CUDA graph on
+    the card (``TrainStep``). ``step`` is the count of
     updates before this one (the schedule's argument); ``noise`` replaces
     the draw from ``generator`` (the parity tests inject JAX's). Metrics
     (the JAX step's names) are 0-d tensors left on the device."""
@@ -114,7 +119,7 @@ def make_train_step(
         }
         return (loss * mask).sum() / denom, aux
 
-    return optimizer_step(loss_fn, optimizer, cfg, generator)
+    return TrainStep(loss_fn, optimizer, lr_schedule(cfg), cfg.noise_std, generator)
 
 
 def _dense_row_advantage(cfg: TrainConfig) -> float:
@@ -222,7 +227,7 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
         state, meta = ckpt.restore(cfg.model_file, map_location=dev)
         sim.load_state_dict(state["params"], strict=True)
         if state["opt_state"] is not None:
-            optimizer.load_state_dict(state["opt_state"])
+            load_optimizer_state(optimizer, state["opt_state"])
         step = int(state["step"])
         lowest_eval_loss = meta.get("lowest_eval_loss") or float("inf")
         print(f"resumed from {cfg.model_file} at step {step}")
@@ -239,13 +244,13 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
     )
 
     logger = MetricLogger(ckpt_dir, use_wandb=cfg.log, project=cfg.project_name, run_name=cfg.run_name)
-    source = batcher.epochs()
+    source = DevicePrefetcher(batcher.epochs(), depth=PREFETCH_DEPTH, device=dev)
     interrupted = False
     t_last = time.perf_counter()
     try:
         while step < cfg.ntraining_steps:
-            for _ in range(inner):  # inner_steps: a plain loop of single steps
-                metrics = train_step(batch_to_device(next(source), dev), step)
+            for _ in range(inner):  # inner_steps: replays of the captured step, each on its own batch
+                metrics = train_step(next(source), step)
                 step += 1
 
             if step % cfg.log_every == 0:
@@ -287,6 +292,8 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
         interrupted = True  # the reference saves a fallback checkpoint on interrupt
         print("training interrupted")
     finally:
+        source.close()
+        train_step.close()
         logger.close()
 
     if interrupted or lowest_eval_loss == float("inf"):

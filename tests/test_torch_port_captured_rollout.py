@@ -302,7 +302,9 @@ def test_card_route_counts_one_step_per_step(stub_counters, monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    modes = []  # thread_local: the trainers' prefetcher may stage a batch during a capture
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, capture_error_mode: modes.append(capture_error_mode)
+                        or contextlib.nullcontext())
 
     def step(window, gt_pos, gt_strain, *, erosional):
         stub_counters.LAUNCHES += 1
@@ -316,6 +318,7 @@ def test_card_route_counts_one_step_per_step(stub_counters, monkeypatch):
     captured.run(step, window, gt_pos, gt_strain, fixed)
     assert stub_counters.LAUNCHES == t and captured.replays == t - 1 == _FakeGraph.replays
     assert captured.launches.delta == {(0, None): 1} and captured.capture_seconds >= 0
+    assert modes == ["thread_local"]
     captured.run(step, window, gt_pos, gt_strain, fixed)
     assert stub_counters.LAUNCHES == 2 * t and captured.replays == 2 * t - 1
 
@@ -330,7 +333,7 @@ def test_a_failed_capture_raises_and_falls_back_to_nothing(stub_counters, monkey
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
 
     @contextlib.contextmanager
-    def failing_capture(graph):
+    def failing_capture(graph, capture_error_mode):
         yield
         raise RuntimeError("operation not permitted when stream is capturing")
 

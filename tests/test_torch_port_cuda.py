@@ -431,9 +431,11 @@ def test_planned_gather_bwd_runs_and_slots(cuda, ks, run_max, pad_rows, past_row
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_gather_functions_take_their_kernels_on_the_card(cuda, dtype):
-    """sorted_gather and planned_gather: the forward is the take kernel,
-    each backward its kernel, the gradients those of the plain versions;
-    indexed_gather's backward is index_add_."""
+    """sorted_gather, planned_gather and ordered_gather: the forward is the
+    take kernel, each backward its kernel (ordered_gather's: the take kernel
+    over the order, then the sorted sum), the gradients those of the plain
+    versions; sorted_sum: the sorted sum kernel, its backward the take
+    kernel. Every gradient repeats bit for bit."""
     import numpy as np
 
     from sgnn_tpu_torch.physics.multi_scale_graph import CooEdges, dense_edges
@@ -443,30 +445,36 @@ def test_gather_functions_take_their_kernels_on_the_card(cuda, dtype):
     de = dense_edges(CooEdges(rng.integers(0, n, 900).astype(np.int32), rng.integers(0, n, 900).astype(np.int32)),
                      n, 200, 16)
     de = [torch.from_numpy(a).to(cuda) for a in de]
+    sorted_s, order = torch.sort(de[1].reshape(-1).int(), stable=True)
     table = torch.randn(n, w, device=cuda).to(dtype).requires_grad_(True)
-    launches, bwd = dict(rg.LAUNCHES), dict(rg.BWD_LAUNCHES)
-    proj_i = rg.sorted_gather(table, de[0], n)
-    xj = rg.planned_gather(table, de[1], *de[3:], n)
-    xs = rg.indexed_gather(table, de[1], n)
-    cot_i = torch.randn_like(proj_i)
-    cot_j = torch.randn_like(xj) * de[2][..., None]  # zero at masked slots, as the model's
-    got = torch.autograd.grad((proj_i, xj, xs), table, (cot_i, cot_j, cot_j))[0]
-    assert rg.LAUNCHES[rg.MODEL_VARIANT] == launches[rg.MODEL_VARIANT] + 3
-    assert rg.BWD_LAUNCHES == {"sorted": bwd["sorted"] + 1, "planned": bwd["planned"] + 1}
+    rows = torch.randn(de[0].numel(), w, device=cuda).to(dtype).requires_grad_(True)
+    cot_i = torch.randn(de[0].numel(), w, device=cuda).to(dtype)
+    cot_j = (torch.randn(*de[1].shape, w, device=cuda) * de[2][..., None]).to(dtype)  # zero at masked slots
+    cot_n = torch.randn(n, w, device=cuda).to(dtype)
+
+    def grads():
+        launches, bwd = dict(rg.LAUNCHES), dict(rg.BWD_LAUNCHES)
+        outs = (rg.sorted_gather(table, de[0], n), rg.planned_gather(table, de[1], *de[3:], n),
+                rg.ordered_gather(table, de[1], order, sorted_s, n), rg.sorted_sum(rows, de[0], n))
+        got = torch.autograd.grad(outs, (table, rows), (cot_i, cot_j, cot_j, cot_n))
+        assert rg.LAUNCHES[rg.MODEL_VARIANT] == launches[rg.MODEL_VARIANT] + 5  # 3 forwards, 2 backwards
+        assert rg.BWD_LAUNCHES == {"sorted": bwd["sorted"] + 3, "planned": bwd["planned"] + 1}
+        return got
+
+    got, again = grads(), grads()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    cj = cot_j.reshape(-1, w)
     want = (rg.sorted_segment_sum_reference(cot_i, de[0], n).float()
-            + rg.planned_gather_bwd_reference(cot_j.reshape(-1, w), *de[3:], n).float()
-            + torch.zeros(n, w, device=cuda).index_add_(0, de[1].reshape(-1), cot_j.reshape(-1, w).float()))
+            + rg.planned_gather_bwd_reference(cj, *de[3:], n).float()
+            + rg.sorted_segment_sum_reference(cj[order], sorted_s, n).float())
     atol = 1e-5 if dtype == torch.float32 else 2.0**-5 * float(want.abs().max())
-    torch.testing.assert_close(got.float(), want, atol=atol, rtol=1e-5 if dtype == torch.float32 else 2.0**-6)
+    torch.testing.assert_close(got[0].float(), want, atol=atol, rtol=1e-5 if dtype == torch.float32 else 2.0**-6)
+    assert torch.equal(got[1], cot_n[de[0].long()])
 
 
 # --- the captured rollout: one step in a CUDA graph --------------------------------
-# Captured and eager routes launch the same kernels on the same inputs, so
-# they agree bit for bit; the COO layout's aggregation adds with float
-# atomics (index_add_), in an order that changes from run to run, so it is
-# held to the rollout tolerance over its first steps instead.
-CAPTURED_COO_TOL = dict(atol=1e-4, rtol=1e-4)
-CAPTURED_COO_STEPS = 3
+# Captured and eager routes launch the same kernels on the same inputs, and
+# no sum adds with atomics, so they agree bit for bit, every layout.
 
 
 def _drifting_lattice(n_side, frames, seed, spacing=0.5):
@@ -580,28 +588,27 @@ def test_captured_rollout_equals_eager_single_scale(cuda, compute_dtype):
 
 @pytest.mark.parametrize("layout,compute_dtype", [("dense", "float32"), ("dense", "bfloat16"), ("coo", "float32")])
 def test_captured_ms_rollout_equals_eager(cuda, layout, compute_dtype):
-    """ms_rollout: captured equal to eager with torch.equal (COO: to its
-    tolerance over the first steps, its aggregation adding with atomics);
-    2 take launches per block per step under replay; no host sync."""
+    """ms_rollout: captured equal to eager with torch.equal, and two eager
+    rollouts equal (every layout: no sum adds with atomics); 2 take
+    launches and one sorted sum per block per step under replay; no host
+    sync."""
     from sgnn_tpu_torch.physics import captured_step
     from sgnn_tpu_torch.physics.multi_scale_simulator import graph_to, ms_rollout, ms_rollout_step
 
     sim, cfg, stats, (pos, types, strains, graph), blocks = _multi_scale(cuda, layout, compute_dtype)
     steps = pos.shape[1] - cfg.input_sequence_length
     eager = ms_rollout(sim, cfg, stats, pos, types, strains, graph, capture=False)
-    before = rg.LAUNCHES[rg.MODEL_VARIANT]
+    before, sums = rg.LAUNCHES[rg.MODEL_VARIANT], rg.BWD_LAUNCHES["sorted"]
     first = ms_rollout(sim, cfg, stats, pos, types, strains, graph)
     again = ms_rollout(sim, cfg, stats, pos, types, strains, graph)
     assert rg.LAUNCHES[rg.MODEL_VARIANT] - before == 2 * 2 * blocks * steps
+    assert rg.BWD_LAUNCHES["sorted"] - sums == 2 * blocks * steps
     (captured,) = captured_step.steps_of(sim)
     assert captured.graph is not None and captured.replays == 2 * steps - 1
-    for out in (first, again):
+    eager_again = ms_rollout(sim, cfg, stats, pos, types, strains, graph, capture=False)
+    for out in (first, again, eager_again):
         for key in ("predicted_rollout", "predicted_strain"):
-            if layout == "dense":
-                assert torch.equal(out[key], eager[key]), key
-            else:
-                torch.testing.assert_close(out[key][:CAPTURED_COO_STEPS], eager[key][:CAPTURED_COO_STEPS],
-                                           **CAPTURED_COO_TOL)
+            assert torch.equal(out[key], eager[key]), key
 
     s = cfg.input_sequence_length
     t = lambda a, dtype=None: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa: E731
@@ -652,3 +659,143 @@ def test_a_step_that_syncs_fails_to_capture_and_raises(cuda):
         captured.run(step, window, gt_pos, gt_strain, {})
     assert captured.graph is None and len(calls) == 1  # the warm-up step only
     torch.cuda.synchronize()
+
+
+# --- the captured training step, fed by the prefetcher ------------------------------
+# Captured and eager training launch the same kernels on the same batches
+# and the same random stream, and no sum adds with atomics: parameters,
+# Adam's moments and step counts, and every metric agree bit for bit, and
+# two eager trainings too.
+
+@pytest.fixture(scope="module")
+def tiny_data(tmp_path_factory):
+    from sgnn_tpu_torch.data.builder import DatasetBuilder
+    from sgnn_tpu_torch.data.synthetic import generate_synthetic_raw_dataset
+
+    root = tmp_path_factory.mktemp("card_train")
+    generate_synthetic_raw_dataset(root / "raw", num_sims=3, nx=12, ny=5, num_steps=60, seed=0)
+    DatasetBuilder(root / "raw", root / "data", step_size=2, total_steps=40, val_patterns=["-110"],
+                   test_patterns=["-120"], boundary_particles_to_remove=2).build()
+    return root
+
+
+def _train_config(root, family, **kw):
+    from sgnn_tpu_torch.train.config import TrainConfig
+
+    base = dict(mode="train", data_path=str(root / "data"), model_path=str(root / "models"),
+                output_path=str(root / "rollouts"), layers=2, hidden_dim=32, dim=2, input_sequence_length=6,
+                connection_radius=0.6, batch_size=4, noise_std=0.001, lr_init=1e-3, pad_multiple=32, seed=0,
+                run_name=family, ntraining_steps=8, nsave_steps=4, log_every=4)
+    if family == "multi_scale":
+        base.update(num_scales=2, window_size=2, edge_pad_multiple=256, batch_size=2)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def _trainer(family):
+    from sgnn_tpu_torch.train import train, train_multi_scale
+
+    return train_multi_scale if family == "multi_scale" else train
+
+
+def _train_route(cfg, family, device, batches, capture):
+    """Train on ``batches`` from the seeded start: (metrics per step, params,
+    Adam's state, the step)."""
+    built = _trainer(family).build_training(cfg, device)
+    built.step_fn.capture = capture
+    metrics = [{k: v.clone() for k, v in built.step_fn(b, i).items()} for i, b in enumerate(batches)]
+    params = {k: v.clone() for k, v in built.sim.state_dict().items()}
+    adam = [{k: v.clone() for k, v in st.items()} for st in built.optimizer.state.values()]
+    step_fn = built.step_fn
+    step_fn.close()
+    return metrics, params, adam, step_fn
+
+
+def _assert_same_training(a, b):
+    for x, y in zip(a[0], b[0]):
+        assert x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+    assert all(torch.equal(v, b[1][k]) for k, v in a[1].items())
+    assert len(a[2]) == len(b[2])
+    for x, y in zip(a[2], b[2]):
+        assert all(torch.equal(x[k], y[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+
+
+@pytest.mark.parametrize("family,kw", [("single_scale", {}), ("multi_scale", dict(ms_dense=False)),
+                                       ("multi_scale", dict(ms_dense=True))], ids=["A_f32", "coo_f32", "dense_f32"])
+def test_captured_training_equals_eager_and_repeats(cuda, tiny_data, family, kw):
+    """5 steps captured (warm-up, capture, 4 replays) against the eager loop
+    and a second eager run: torch.equal on every parameter, Adam's moments
+    and step counts, and every metric; the kernels' counters add each
+    replay's launches; the capture's lr and batch come from outside it."""
+    cfg = _train_config(tiny_data, family, **kw)
+    trainer = _trainer(family)
+    built = trainer.build_training(cfg, cuda)
+    source = built.batcher.epochs()
+    batches = [trainer.batch_to_device(next(source), cuda) for _ in range(5)]
+    del built
+    before = dict(rg.BWD_LAUNCHES)
+    captured = _train_route(cfg, family, cuda, batches, capture=True)
+    per_step = {k: (rg.BWD_LAUNCHES[k] - before[k]) / 5 for k in before}
+    before = dict(rg.BWD_LAUNCHES)
+    eager = _train_route(cfg, family, cuda, batches, capture=False)
+    assert {k: (rg.BWD_LAUNCHES[k] - before[k]) / 5 for k in before} == per_step
+    assert per_step["sorted"] > 0  # A's sender backward and every multi-scale sum take the sorted kernel
+    assert captured[3].graph is None and captured[3].replays == 4  # closed after 4 replays
+    _assert_same_training(captured, eager)
+    _assert_same_training(eager, _train_route(cfg, family, cuda, batches, capture=False))
+
+
+def test_warm_captured_training_step_needs_no_host_sync(cuda, tiny_data):
+    """A warm replay of the captured step (batch copied in, z drawn, lr
+    filled, one graph launch) and a warm eager step pass sync-debug mode
+    "error"."""
+    from sgnn_tpu_torch.train import train
+
+    cfg = _train_config(tiny_data, "single_scale")
+    for capture in (True, False):
+        built = train.build_training(cfg, cuda)
+        built.step_fn.capture = capture
+        source = built.batcher.epochs()
+        batches = [train.batch_to_device(next(source), cuda) for _ in range(3)]
+        built.step_fn(batches[0], 0)
+        built.step_fn(batches[1], 1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            built.step_fn(batches[2], 2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        built.step_fn.close()
+
+
+def test_prefetcher_delivers_the_host_batches_during_a_rollout_capture(cuda):
+    """The prefetcher pins and copies on its own thread and stream while the
+    main thread captures a rollout step: every batch arrives on the card
+    equal to what the host sent, and the captured rollout equals the eager
+    one."""
+    import time
+
+    import numpy as np
+
+    from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
+    from sgnn_tpu_torch.physics.rollout import rollout
+
+    rng = np.random.default_rng(5)
+    host = [{"x": rng.normal(size=(256, 1024)).astype(np.float32), "i": np.full(3, i)} for i in range(48)]
+
+    def slow():  # about half a second of staging, fresh host memory pinned for every batch
+        for b in host:
+            time.sleep(0.01)
+            yield {k: v.copy() for k, v in b.items()}
+
+    sim, cfg, stats, (pos, types, strains, mask) = _single_scale(cuda, "float32")
+    eager = rollout(sim, cfg, stats, pos, types, strains, mask, capture=False)  # the kernels built
+    with DevicePrefetcher(slow(), depth=len(host), device=cuda) as pf:
+        captured = rollout(sim, cfg, stats, pos, types, strains, mask)  # captures while the thread stages
+        got = list(pf)
+    assert torch.equal(captured["predicted_rollout"], eager["predicted_rollout"])
+    assert len(got) == len(host)
+    for a, b in zip(got, host):
+        assert a["x"].is_cuda and torch.equal(a["x"].cpu(), torch.from_numpy(b["x"]))
+        assert torch.equal(a["i"].cpu(), torch.from_numpy(b["i"]))

@@ -410,6 +410,14 @@ def batched_graphs(layout, n=64):
 
 def assert_same_arrays(a, b, where=""):
     if isinstance(a, (tuple, list)):
+        if type(a).__name__ == "PaddedEdges" and len(a) == len(b) + 1:
+            # the port's own field, the sender order its deterministic sender
+            # backward reads (JAX's scatters): the stable sort of the senders,
+            # padding last, computed here from JAX's arrays
+            np.testing.assert_array_equal(np.asarray(a.order), tg.sender_order(np.asarray(b.senders),
+                                                                               np.asarray(b.mask)),
+                                          err_msg=f"{where}.order")
+            a, b = tuple(a[:-1]), tuple(b)
         assert type(a).__name__ == type(b).__name__ and len(a) == len(b), where
         for i, (x, y) in enumerate(zip(a, b)):
             assert_same_arrays(x, y, f"{where}[{i}]")
@@ -429,11 +437,20 @@ def test_stack_and_flatten_match_jax_exactly(layout):
         jax.tree.map(jnp.asarray, jgraph), n)
     tflat = (tmodel.flatten_dense_ms_graph if layout == "dense" else tmodel.flatten_ms_graph)(
         tms.graph_to(tgraph, torch.device("cpu")), n)
-    assert_same_arrays(jax.tree.map(lambda t: t.numpy(), tflat, is_leaf=lambda t: isinstance(t, torch.Tensor)),
-                       jax.tree.map(np.asarray, jflat))
+    numpy_flat = jax.tree.map(lambda t: t.numpy(), tflat, is_leaf=lambda t: isinstance(t, torch.Tensor))
+    if layout == "coo":
+        # the flat sender order is each graph's, moved by b * E_pad; the
+        # fields JAX's flattening also has are held to JAX's below
+        for t, pe in zip(("g2m", "m2m", "m2g"), numpy_flat):
+            b, e = getattr(tgraph, t).order.shape
+            want = (getattr(tgraph, t).order + np.arange(b, dtype=np.int32)[:, None] * e).reshape(-1)
+            np.testing.assert_array_equal(pe.order, want, err_msg=t)
+        numpy_flat = type(numpy_flat)(*(tuple(pe[:-1]) for pe in numpy_flat))
+        jflat = type(jflat)(*(tuple(pe) for pe in jflat))
+    assert_same_arrays(numpy_flat, jax.tree.map(np.asarray, jflat))
     edge_sets = ([tflat.g2m, *tflat.m2m, tflat.m2g] if layout == "dense" else [tflat.g2m, tflat.m2m, tflat.m2g])
     for de in edge_sets:  # the ids the sorted kernels search stay ascending
-        ids = [de.recv, de.tsp_node] if layout == "dense" else [de.receivers]
+        ids = [de.recv, de.tsp_node] if layout == "dense" else [de.receivers, de.senders[de.order.long()]]
         for a in ids:
             assert (torch.diff(a) >= 0).all()
 
@@ -447,6 +464,9 @@ def test_check_sorted_ids_refuses_unsorted_ids():
     _, coo = batched_graphs("coo")
     bad = coo._replace(m2m=coo.m2m._replace(receivers=coo.m2m.receivers + 64))
     with pytest.raises(ValueError, match="m2m.receivers"):
+        tloader.check_sorted_ids(bad, 64)
+    bad = coo._replace(g2m=coo.g2m._replace(order=coo.g2m.order[:, ::-1].copy()))
+    with pytest.raises(ValueError, match="g2m.order"):
         tloader.check_sorted_ids(bad, 64)
 
 
@@ -550,7 +570,7 @@ def test_ms_predict_accelerations_batched_matches_jax(tiny, rng, ms_dense, compu
 
 @pytest.mark.parametrize("layout", ["coo", "dense"])
 def test_ms_predict_accelerations_matches_jax(rng, layout):
-    """The one-graph training forward (COO receivers unsorted: padding at 0)."""
+    """The one-graph training forward (COO: padding at 0 until the graph is flattened)."""
     kw = dict(dim=DIM, latent_dim=16, num_message_passing_steps=2, num_mlp_layers=2, input_sequence_length=S,
               num_scales=2, window_size=2)
     jcfg, tcfg = jms.MultiScaleSimulatorConfig(**kw), tms.MultiScaleSimulatorConfig(**kw)
@@ -572,7 +592,7 @@ def test_ms_predict_accelerations_matches_jax(rng, layout):
     tab = sim._multi_scale_gnn.m2m_blocks[0].edge_fn[0].linears[0].weight
     got = tms.ms_predict_accelerations(sim, tcfg, tstats, *map(torch.from_numpy, args),
                                        tms.graph_to(graph, torch.device("cpu")))
-    (got[0].sum() + got[2].sum()).backward()  # unsorted COO receivers take indexed_gather
+    (got[0].sum() + got[2].sum()).backward()  # one COO graph: flattened as a batch of one
     assert tab.grad is not None and torch.isfinite(tab.grad).all()
     for name, a, b in zip(("pred_acc", "target_acc", "pred_strain"), got, want):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), err_msg=name, **FWD_TOL["float32"])
@@ -601,8 +621,8 @@ def _jax_step_outputs(jsim_cfg, jstats, cfg, params, jbatch, key):
 def test_train_step_matches_jax(tiny, rng, ms_dense, compute_dtype):
     """One step of make_train_step against JAX's, from the same params,
     batch and noise: loss and aux, every gradient, the parameters after
-    Adam; the launch counts of the backwards' wrappers (plain versions on
-    the CPU) as the model's blocks ask.
+    Adam; the launch counts of the sorted-sum and plan wrappers (plain
+    versions on the CPU) as the model's blocks ask.
 
     bf16: JAX runs op by op (``jax.disable_jit``), rounding to bf16 after
     every op as the port's eager ops do (under jit XLA computes fused bf16
@@ -638,7 +658,10 @@ def test_train_step_matches_jax(tiny, rng, ms_dense, compute_dtype):
             mp.setattr(rg, name, lambda *a, _k=kind, _f=wrap[name]: calls.__setitem__(_k, calls[_k] + 1) or _f(*a))
         tm = {k: float(v) for k, v in step(torch_batch(batch), 0, noise=torch.from_numpy(np.array(noise))).items()}
     blocks = 2 + cfg.layers * (cfg.num_scales - 1 if ms_dense else 1)  # G2M, M2G, M2M per layer (and scale)
-    assert calls == {"sorted": blocks, "planned": blocks if ms_dense else 0}
+    # per block: the aggregation's sorted sum and the receiver gather's
+    # backward; the sender gather's backward, the plan's (dense) or a sorted
+    # sum over the sender order (COO)
+    assert calls == {"sorted": (2 if ms_dense else 3) * blocks, "planned": blocks if ms_dense else 0}
 
     assert set(tm) == set(jm) == {"train/loss", "train/loss-position", "train/loss-strain"}
     for name in jm:

@@ -143,7 +143,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(variant):
         fn(torch.zeros(8 * 16 + 1)[1:].view(8, 16), idx)
     with pytest.raises(ValueError, match="one cpu or cuda device"):
         fn(torch.zeros(8, 16, device="meta"), idx)
-    with pytest.raises(NotImplementedError, match="sorted_gather, planned_gather or indexed_gather"):
+    with pytest.raises(NotImplementedError, match="sorted_gather, planned_gather or ordered_gather"):
         fn(tbl.requires_grad_(True), idx)  # a bare gather has no backward; the model's Functions do
     with torch.no_grad():  # no graph is built, so no backward is needed
         assert torch.equal(fn(tbl, idx), torch.zeros(4, 16))
