@@ -93,19 +93,44 @@ each of which raises on failure:
      launched twice and bit-identical to its plain version, timed beside
      the index_add_ route and their bound.
 
+ 11. parallel runs, one process driving a mesh that names the one card
+     twice (two replicas or two shards on it, real exchanges and
+     reductions, each step one CUDA graph): config A with
+     ``data_parallel: 2`` through ``train`` for 20 steps (launches twice
+     A's per step), one step against the single-device step (STEP_TOL),
+     the same step inside a one-process NCCL group (``multihost.
+     initialize``) equal to it without (torch.equal), captured against
+     eager and two eager runs (``training_routes``); the multi-scale model
+     (dense f32, batch 16) with ``data_parallel: 2``: one step against one
+     device, captured against eager; config A with ``graph_parallel: 2``
+     (batch 1) through ``train`` (halo violations and rejections printed),
+     its first step against one device at the JAX tests' tolerances
+     (GP_TOL), captured against eager, ``predict`` partitioned against
+     the single-device rollout (GP_ROLLOUT_TOL) and the replanning
+     rollout's captured route against its eager one; config B (bf16,
+     symmetric gather) with ``graph_parallel: 2`` on a second bar of 28,796
+     particles (the sharded symmetric route: 14,400 local rows) through
+     ``train`` for 3 steps, its first step against one device (GP_SYM_TOL),
+     captured against eager. Launch counters are set to 0 before each
+     route; one ``parallel {...}`` JSON line.
+
 The last lines are the training routes of 5 and 10 (one ``train routes
 {...}`` JSON line), the rollout routes of 6 and 9 (one ``routes {...}``
-JSON line), the kernel summary (JSON), the nvidia-smi line, and
+JSON line), the kernel summary (JSON; the parallel routes' launches under
+``launches_by_path``), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only row_gather_bwd
+    python3 chip_smoke.py --only parallel
 
-runs phases 1, 2, 4 and the backward kernels' checks and times of 10
-alone and prints them as one ``bwd {...}`` JSON line.
+run phases 1, 2, 4 and the backward kernels' checks and times of 10 (one
+``bwd {...}`` JSON line), or phase 11 (its ``parallel {...}`` line),
+alone.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pickle
@@ -205,6 +230,30 @@ STEP_TOL = {
     "MS_f32": dict(loss_rtol=1e-4, grad_rel=1e-3, param_atol=1e-7, param_rtol=2.0**-22, update_rtol=1e-5),
     "MS_bf16": dict(loss_rtol=1e-2, grad_rel=1e-2, param_atol=1e-7, param_rtol=2.0**-22, update_rtol=1e-5),
 }
+# graph-parallel against one device, the JAX tests' tolerances: the first
+# training step (tests/test_edge_partition.py:242-247: loss rtol 2e-4,
+# gradients rtol 5e-3 atol 1e-5); the symmetric sharded route's gradients
+# (:573-574: rtol 2e-4, atol 1e-6; its loss to :242's); the rollout
+# (:284-289: positions rtol 1e-3 atol 2e-4; strain and the cumulative RMSE
+# rtol 1e-3 atol 1e-5): (rtol, atol)
+GP_TOL = dict(loss_rtol=2e-4, grad_rtol=5e-3, grad_atol=1e-5)
+GP_SYM_TOL = dict(loss_rtol=2e-4, grad_rtol=2e-4, grad_atol=1e-6)
+# config B itself (bf16 edge tensors): a halo row's gradient is the sum of
+# two bf16 partial sums, its own shard's and its neighbour's, where one
+# device rounds one sum, so a boundary row's d_proj_j moves by a bf16
+# rounding (2^-8): B's step tolerance (STEP_TOL["B"]: loss 2e-4 relative,
+# each gradient 5e-3 of its largest entry plus 5e-3 relative)
+GP_SYM_BF16_TOL = dict(loss_rtol=STEP_TOL["B"]["loss_rtol"], grad_rtol=STEP_TOL["B"]["grad_rel"],
+                       grad_atol_rel=STEP_TOL["B"]["grad_rel"])
+GP_ROLLOUT_TOL = {"predicted_rollout": (1e-3, 2e-4), "predicted_strain": (1e-3, 1e-5),
+                  "rmse_position": (1e-3, 1e-5)}
+# the symmetric sharded route runs at >= 12,288 local rows
+# (edge_partition._SYM_MIN_LOCAL_ROWS): a second bar of 28,796 particles, 2
+# shards of 14,400 rows; 20 frames per run (60 raw steps, 40 kept)
+GP_SYM_MIN_LOCAL_ROWS = 12_288
+GP_BIG_BAR = dict(nx=240, ny=120, num_steps=60)
+GP_BIG_BAR_KEPT_STEPS = 40
+GP_SYM_STEPS = 3
 TRAIN_STEPS, SAVE_EVERY, LOG_EVERY = 20, 10, 10
 PROFILE_STEPS = 3
 # training_routes: steps per route on batches staged beforehand: warm (the
@@ -692,7 +741,7 @@ def _launch_counts():
                 planned=rg.BWD_LAUNCHES["planned"])
 
 
-def training_routes(where, cfg, device, trainer, repeat_eager=False):
+def training_routes(where, cfg, device, trainer, repeat_eager=False, devices=None):
     """The captured training step against the eager one (``capture=False``),
     each from the seeded start of ``trainer.build_training(cfg)`` (the same
     weights and noise stream) on the same batches staged beforehand:
@@ -705,12 +754,13 @@ def training_routes(where, cfg, device, trainer, repeat_eager=False):
     eager run equals the first too (determinism). Per route: the kernel
     launches per step (equal on both), wall, device busy and idle share,
     kernels and host calls per step, peak memory of the first call (the
-    capturing call) and of the timed steps, and the capture's host time."""
+    capturing call) and of the timed steps, and the capture's host time.
+    ``devices``: the mesh of a parallel run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    built = trainer.build_training(cfg, device)
-    source = built.batcher.epochs()
+    built = trainer.build_training(cfg, device, devices=devices)
+    source = built.epochs()
     n_steps = ROUTE_WARM_STEPS + ROUTE_TIMED_STEPS + PROFILE_STEPS + 1
     batches = [trainer.batch_to_device(next(source), device) for _ in range(n_steps)]
     del built, source
@@ -718,7 +768,7 @@ def training_routes(where, cfg, device, trainer, repeat_eager=False):
     def run(capture):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        built = trainer.build_training(cfg, device)
+        built = trainer.build_training(cfg, device, devices=devices)
         step_fn = built.step_fn
         step_fn.capture = capture
         before, metrics = _launch_counts(), []
@@ -2022,13 +2072,416 @@ def routes_summary(rollouts, ms_runs, smi):
     return {"paths": out, "nvidia_smi": smi}
 
 
+# --------------------------------------------------------------------------
+# 11. parallel runs: replicas and shards on the one card
+# --------------------------------------------------------------------------
+
+
+def step_outputs(built, batch, noise, step=0):
+    """One step of ``built`` on ``batch`` with ``noise`` injected (the eager
+    route): metrics, gradients, parameters before and after, as
+    ``compare_steps`` reads them."""
+    before = {k: v.detach().clone() for k, v in built.sim.state_dict().items()}
+    metrics = {k: float(v) for k, v in built.step_fn(batch, step, noise=noise).items()}
+    return dict(metrics=metrics, before=before,
+                grads={k: p.grad.detach().clone() for k, p in built.sim.named_parameters()},
+                params={k: v.detach().clone() for k, v in built.sim.state_dict().items()})
+
+
+def allclose_report(where, got, want, rtol, atol, atol_rel=0.0):
+    """``|got - want| <= atol + atol_rel max|want| + rtol |want|`` (numpy's
+    assert_allclose rule, and a share of each tensor's largest entry) over
+    every tensor of two dicts; the worst ratio of error to limit."""
+    worst = 0.0
+    for k, w in want.items():
+        err = (got[k].double() - w.double()).abs()
+        limit = atol + atol_rel * float(w.abs().max()) + rtol * w.double().abs()
+        worst = max(worst, float((err / limit).max()))
+        if (err > limit).any():
+            raise AssertionError(f"{where}: {k} max |err| {float(err.max()):.3e} over atol {atol} + rtol {rtol}")
+    return worst
+
+
+def dp_a_route(root: Path, data: Path, card, smi: str):
+    """Config A with ``data_parallel: 2`` on [card, card]: ``train`` for
+    TRAIN_STEPS steps (launches: twice A's per step, the validation as A's),
+    one step against the single-device step on the same batch and noise
+    (STEP_TOL["A"]), the NCCL group's step against the one without
+    (torch.equal), captured against eager and two eager runs
+    (``training_routes``: torch.equal)."""
+    import torch
+
+    from sgnn_tpu_torch.data.loader import TrajectoryLoader
+    from sgnn_tpu_torch.ops import edge_block as eb
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.parallel import multihost
+    from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+    from sgnn_tpu_torch.train import train as trainer
+
+    devices = [card, card]
+    cfg = train_config(root, data, "A", run_name="smoke_dp_A", data_parallel=2)
+    valid = TrajectoryLoader(data / "valid.npz", pad_multiple=cfg.pad_multiple)
+    val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
+    layers = cfg.layers
+    expect = dict(fwd=2 * layers * TRAIN_STEPS + layers * val_steps * (TRAIN_STEPS // SAVE_EVERY),
+                  bwd=2 * layers * TRAIN_STEPS, take=4 * layers * TRAIN_STEPS, sorted=2 * layers * TRAIN_STEPS)
+    torch.cuda.synchronize()
+    eb.LAUNCHES = eb.BWD_LAUNCHES = 0
+    reset_gather_launches()
+    reset_bwd_gather_launches()
+    result = trainer.train(cfg, device=card, devices=devices)
+    got = dict(fwd=eb.LAUNCHES, bwd=eb.BWD_LAUNCHES, take=rg.LAUNCHES[rg.MODEL_VARIANT],
+               sorted=rg.BWD_LAUNCHES["sorted"])
+    if got != expect or result["step"] != TRAIN_STEPS or not math.isfinite(result["lowest_eval_loss"]):
+        raise AssertionError(f"dp A: launches {got}, expected {expect}; {result}")
+    records = [json.loads(line) for line in (Path(cfg.model_path) / cfg.run_name / "metrics.jsonl").open()]
+    logged = [r["train/step_time_s"] * 1e3 for r in records if "train/step_time_s" in r]
+
+    # one step against the single-device step, and inside a one-process NCCL group
+    single_cfg = train_config(root, data, "A", run_name="smoke_dp_A_single")
+    built = trainer.build_training(cfg, card, devices=devices)
+    batch = trainer.batch_to_device(next(built.epochs()), card)
+    noise = random_walk_position_noise(tuple(batch["positions"].shape), cfg.noise_std,
+                                       generator=torch.Generator(device=card).manual_seed(2), device=card)
+    dp = step_outputs(built, batch, noise)
+    del built
+    single = step_outputs(trainer.build_training(single_cfg, card), batch, noise)
+    worst = compare_steps("dp A vs one device", dp, single, STEP_TOL["A"], cfg.lr_init + 1e-6)
+    multihost.initialize(f"tcp://localhost:{free_port()}", world_size=1, rank=0)  # NCCL: the card's backend
+    try:
+        backend = torch.distributed.get_backend()
+        in_group = step_outputs(trainer.build_training(cfg, card, devices=devices), batch, noise)
+    finally:
+        multihost.shutdown()
+    group_equal = (all(torch.equal(v, dp["grads"][k]) for k, v in in_group["grads"].items())
+                   and all(torch.equal(v, dp["params"][k]) for k, v in in_group["params"].items())
+                   and in_group["metrics"] == dp["metrics"])
+    if backend != ("nccl" if card.type == "cuda" else "gloo"):
+        raise AssertionError(f"dp A: multihost.initialize formed a {backend} group on {card}")
+    if not group_equal:
+        raise AssertionError(f"dp A: the step in a one-process {backend} group differs from the one without")
+    torch.cuda.empty_cache()
+    routes = training_routes("dp A", cfg, card, trainer, repeat_eager=True, devices=devices)
+    return dict(config="A", data_parallel=2, devices=[str(d) for d in devices], launches=got, expected_launches=expect,
+                trainer_logged_ms_per_step=logged, vs_one_device=worst, tol=STEP_TOL["A"],
+                nccl_group=dict(backend=backend, equal=group_equal, check="torch.equal: gradients, parameters, "
+                                "metrics of one step in a one-process NCCL group vs without"),
+                routes=routes, nvidia_smi=smi)
+
+
+def dp_ms_route(root: Path, data: Path, card, smi: str):
+    """The multi-scale model (dense f32, taylor2d_multi_scale.yaml's values,
+    batch 16) with ``data_parallel: 2`` on [card, card]: one step against the
+    single-device step (STEP_TOL["MS_f32"]); captured against eager
+    (``training_routes``: torch.equal), twice the single step's launches."""
+    import torch
+
+    from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+
+    devices = [card, card]
+    cfg = ms_train_config(root, data, "dense_f32", run_name="smoke_dp_ms", data_parallel=2)
+    built = tms.build_training(cfg, card, devices=devices)
+    blocks = ms_blocks(built.batcher.graphs[0])
+    batch = tms.batch_to_device(next(built.epochs()), card)
+    noise = random_walk_position_noise(tuple(batch["positions"].shape), cfg.noise_std,
+                                       generator=torch.Generator(device=card).manual_seed(2), device=card)
+    dp = step_outputs(built, batch, noise)
+    del built
+    single = step_outputs(tms.build_training(ms_train_config(root, data, "dense_f32"), card), batch, noise)
+    worst = compare_steps("dp ms vs one device", dp, single, STEP_TOL["MS_f32"], cfg.lr_init + 1e-6)
+    del batch, noise, single, dp
+    torch.cuda.empty_cache()
+    routes = training_routes("dp ms dense_f32", cfg, card, tms, devices=devices)
+    expect = dict(take=2 * 3 * blocks, sorted=2 * 2 * blocks, planned=2 * blocks)  # twice one replica's
+    got = {k: routes["captured"]["launches_per_step"][k] for k in expect}
+    if got != expect:
+        raise AssertionError(f"dp ms: launches per step {got}, expected {expect}")
+    return dict(run="dense_f32", data_parallel=2, batch_size=cfg.batch_size, blocks=blocks,
+                launches_per_step=got, vs_one_device=worst, tol=STEP_TOL["MS_f32"], routes=routes, nvidia_smi=smi)
+
+
+def gp_vs_one_device(where, cfg, single_cfg, card, sym_expect, tol):
+    """The first step of a graph-parallel run against the single-device step
+    on the same sorted sample and noise, to ``tol``."""
+    import torch
+
+    from sgnn_tpu_torch.ops import sym_gather as sg
+    from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+    from sgnn_tpu_torch.train import train as trainer
+
+    built = trainer.build_training(cfg, card, devices=[card, card])
+    spec = built.spec
+    batch = trainer.batch_to_device(next(built.epochs()), card)
+    noise = random_walk_position_noise(tuple(batch["positions"].shape), cfg.noise_std,
+                                       generator=torch.Generator(device=card).manual_seed(2), device=card)
+    calls = sg.BWD_CALLS
+    gp = step_outputs(built, batch, noise)
+    sym_calls = sg.BWD_CALLS - calls
+    del built
+    single = step_outputs(trainer.build_training(single_cfg, card, batch_size=1),
+                          {k: v[None] for k, v in batch.items()}, noise[None])
+    loss_rel = abs(gp["metrics"]["train/loss"] - single["metrics"]["train/loss"]) / abs(single["metrics"]["train/loss"])
+    if gp["metrics"]["train/halo_violations"] != 0 or loss_rel > tol["loss_rtol"] or sym_calls != sym_expect:
+        raise AssertionError(f"{where}: violations {gp['metrics']['train/halo_violations']}, loss {loss_rel:.3e} "
+                             f"relative, sym_gather backward passes {sym_calls} (expected {sym_expect})")
+    grad_worst = allclose_report(f"{where} gradients", gp["grads"], single["grads"], tol["grad_rtol"],
+                                 tol.get("grad_atol", 0.0), tol.get("grad_atol_rel", 0.0))
+    return dict(spec=dict(num_shards=spec.num_shards, nodes_per_shard=spec.nodes_per_shard, halo=spec.halo),
+                nodes=int(batch["node_mask"].sum()), loss_rel=loss_rel, grad_err_over_limit=grad_worst,
+                sym_gather_backward=sym_calls, tol=tol)
+
+
+def gp_a_route(root: Path, data: Path, card, smi: str):
+    """Config A with ``graph_parallel: 2`` (batch 1) on [card, card]:
+    ``train`` for TRAIN_STEPS steps (violations and rejections printed), the
+    first step against the single-device step (GP_TOL), captured against
+    eager (``training_routes``), and ``predict`` on the test split against
+    the single-device captured rollout (GP_ROLLOUT_TOL), the replanning
+    rollout's captured route against its eager one (torch.equal)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from sgnn_tpu_torch.data.loader import TrajectoryLoader, load_metadata
+    from sgnn_tpu_torch.ops import edge_block as eb
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.parallel.edge_partition import dataset_partition_plan, make_replanning_rollout
+    from sgnn_tpu_torch.parallel.mesh import make_mesh
+    from sgnn_tpu_torch.physics.rollout import rollout
+    from sgnn_tpu_torch.physics.simulator import make_norm_stats, simulator_init
+    from sgnn_tpu_torch.train import train as trainer
+    from sgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    devices, shards = [card, card], 2
+    cfg = train_config(root, data, "A", run_name="smoke_gp_A", graph_parallel=shards, batch_size=1)
+    single_cfg = train_config(root, data, "A", run_name="smoke_gp_A_single")
+    layers = cfg.layers
+    valid = TrajectoryLoader(data / "valid.npz", pad_multiple=cfg.pad_multiple)
+    val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
+    train_part = dict(fwd=shards * layers * TRAIN_STEPS, bwd=shards * layers * TRAIN_STEPS,
+                      take=2 * shards * layers * TRAIN_STEPS, sorted=shards * layers * TRAIN_STEPS)
+    torch.cuda.synchronize()
+    eb.LAUNCHES = eb.BWD_LAUNCHES = 0
+    reset_gather_launches()
+    reset_bwd_gather_launches()
+    result = trainer.train(cfg, device=card, devices=devices)
+    got = dict(fwd=eb.LAUNCHES, bwd=eb.BWD_LAUNCHES, take=rg.LAUNCHES[rg.MODEL_VARIANT],
+               sorted=rg.BWD_LAUNCHES["sorted"])
+    # the validation's re-planned steps run again: every frame is one
+    # forward per shard and layer, and each re-plan one more
+    val_fwd = got["fwd"] - train_part["fwd"]
+    val_replans, rest = divmod(val_fwd - shards * layers * val_steps * (TRAIN_STEPS // SAVE_EVERY), shards * layers)
+    if ({k: got[k] for k in ("bwd", "take", "sorted")} != {k: train_part[k] for k in ("bwd", "take", "sorted")}
+            or val_replans < 0 or rest or result["step"] != TRAIN_STEPS):
+        raise AssertionError(f"gp A: launches {got}, expected {train_part} + the validation's; {result}")
+    run_dir = Path(cfg.model_path) / cfg.run_name
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").open()]
+    train_rec = [r for r in records if "train/loss" in r]
+    violations = [r["train/halo_violations"] for r in train_rec]
+    rejected = [r["train/halo_rejected"] for r in train_rec]
+    log(f"gp A: halo violations at the logged steps {violations}, rejected {rejected}; "
+        f"validation re-plans {val_replans}")
+    first = gp_vs_one_device("gp A vs one device", cfg, single_cfg, card, 0, GP_TOL)
+    torch.cuda.empty_cache()
+    routes = training_routes("gp A", cfg, card, trainer, devices=devices)
+
+    # predict, partitioned, from the run's checkpoint; against the
+    # single-device captured rollout on the layout the partitioned one
+    # starts from (its initial x-sort): where the neighbour cap or a cell's
+    # capacity binds, the lowest indices are kept, so two orders of the
+    # same particles may keep other neighbours (tests/test_edge_partition.py
+    # holds its single-device reference on the sorted layout too)
+    meta = json.loads((run_dir / "checkpoint_meta.json").read_text())
+    metadata = load_metadata(data)
+    test = TrajectoryLoader(data / "test.npz", pad_multiple=cfg.pad_multiple)
+    steps = [p.shape[0] - cfg.input_sequence_length for p, _, _ in test.trajectories]
+    c = dataclasses.replace(cfg, mode="rollout", model_file=meta["path"], output_path=str(root / "gp_predict"))
+    eb.LAUNCHES = 0
+    trainer.predict(c, device=card, devices=devices)
+    fwd = eb.LAUNCHES
+    outs = [pickle.loads((root / "gp_predict" / c.run_name / f"{case.replace('.npz', '')}.pkl").read_bytes())
+            for case in metadata["file_test"]]  # predict's order: the loader's
+    replans = [int(o["replans"]) for o in outs]
+    expect_fwd = shards * layers * (sum(steps) + sum(replans))
+    if fwd != expect_fwd or len(outs) != len(steps) or any(replans):
+        raise AssertionError(f"gp A predict: edge_block_fwd launches {fwd}, expected {expect_fwd}; "
+                             f"re-plans {replans} (the comparison below needs none)")
+    sim_cfg = trainer.simulator_config_from(cfg, metadata)
+    stats = make_norm_stats(metadata, cfg.noise_std, device=card)
+    sim = simulator_init(sim_cfg, device=card)
+    state, _ = CheckpointManager(run_dir).restore(meta["path"], map_location=card)
+    sim.load_state_dict(state["params"], strict=True)
+    worst = {}
+    for gp, traj in zip(outs, test):
+        m = np.asarray(traj["node_mask"], bool)
+        idx = np.nonzero(m)[0]
+        order = idx[np.argsort(traj["positions"][idx, 0, 0], kind="stable")]  # the replanning rollout's first plan
+        one = rollout(sim, sim_cfg, stats, traj["positions"][order], traj["particle_type"][order],
+                      traj["strains"][:, order], device=card)
+        for key, (rtol, atol) in GP_ROLLOUT_TOL.items():
+            a, b = np.asarray(gp[key]), one[key].cpu().numpy()
+            if key != "rmse_position":
+                a = a[:, order]
+            ratio = float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+            worst[key] = max(worst.get(key, 0.0), ratio)
+        if int(np.sum(gp["halo_violations"])):
+            raise AssertionError(f"gp A predict: residual halo violations {gp['halo_violations']}")
+    log(f"gp A predict vs the one-device captured rollout: worst |err| / limit {worst}; re-plans {replans}")
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"gp A predict: partitioned rollout outside {GP_ROLLOUT_TOL} of one device's: {worst}")
+
+    # the replanning rollout's captured route against its eager one, timed
+    spec = dataset_partition_plan(trainer.partition_frames(test.trajectories), shards, cfg.connection_radius)
+    run = make_replanning_rollout(make_mesh(graph=shards, devices=devices), sim_cfg, stats, spec)
+    traj = next(iter(test))
+    args = (traj["positions"], traj["particle_type"], traj["strains"], traj["node_mask"])
+    timed = {}
+    for name, capture in (("captured", True), ("eager", False), ("captured_warm", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(sim, *args, capture=capture)
+        torch.cuda.synchronize()
+        timed[name] = dict(ms_per_step=(time.perf_counter() - t0) * 1e3 / steps[0], out=out)
+    same = all(torch.equal(timed["captured"]["out"][k], timed["eager"]["out"][k])
+               for k in ("predicted_rollout", "predicted_strain", "halo_violations"))
+    if not same:
+        raise AssertionError("gp A: the captured replanning rollout differs from its eager one")
+    rollout_routes = {n: t["ms_per_step"] for n, t in timed.items()}
+    log(f"gp A replanning rollout routes (wall ms/step, host clock, per-frame guard read): {rollout_routes}")
+    return dict(config="A", graph_parallel=shards, devices=[str(d) for d in devices], launches=got,
+                training_launches=train_part, validation_replans=val_replans, halo_violations=violations,
+                halo_rejected=rejected, first_step_vs_one_device=first, routes=routes,
+                predict=dict(fwd_launches=fwd, replans=replans, worst_err_over_limit=worst, tol=GP_ROLLOUT_TOL,
+                             rollout_steps=steps, reference="the one-device captured rollout on the first plan's "
+                             "x-sorted layout"),
+                replanning_rollout=dict(check="torch.equal: predicted positions, strains, violations; captured "
+                                        "vs eager", wall_ms_per_step=rollout_routes),
+                nvidia_smi=smi)
+
+
+def make_big_bar(root: Path) -> Path:
+    """A second synthetic bar of GP_BIG_BAR particles (the symmetric sharded
+    route's size): one training and one validation run, short."""
+    from sgnn_tpu_torch.data.builder import DatasetBuilder
+    from sgnn_tpu_torch.data.synthetic import generate_synthetic_raw_dataset
+
+    generate_synthetic_raw_dataset(root / "raw_big", num_sims=2, **GP_BIG_BAR, seed=1)
+    DatasetBuilder(root / "raw_big", root / "data_big", total_steps=GP_BIG_BAR_KEPT_STEPS,
+                   val_patterns=["-110"]).build()
+    return root / "data_big"
+
+
+def gp_sym_route(root: Path, card, smi: str):
+    """Config B (bf16, symmetric gather by the auto-rule) with
+    ``graph_parallel: 2`` on the big bar: ``train`` for GP_SYM_STEPS steps
+    (the sharded symmetric route: its backward once per layer and shard),
+    the first step against the single-device step (GP_SYM_TOL), captured
+    against eager."""
+    import torch
+
+    from sgnn_tpu_torch.data.loader import TrajectoryLoader, load_metadata
+    from sgnn_tpu_torch.ops import edge_block as eb
+    from sgnn_tpu_torch.ops import sym_gather as sg
+    from sgnn_tpu_torch.train import train as trainer
+
+    data = make_big_bar(root)
+    devices, shards = [card, card], 2
+    kw = dict(run_name="smoke_gp_B_sym", ntraining_steps=GP_SYM_STEPS, nsave_steps=GP_SYM_STEPS, log_every=1)
+    cfg = train_config(root, data, "B", graph_parallel=shards, batch_size=1, **kw)
+    sim_cfg = trainer.simulator_config_from(cfg, load_metadata(data))
+    if not sim_cfg.symmetric_gather:
+        raise AssertionError("gp B: the auto-rule left the symmetric gather off on the big bar")
+    torch.cuda.synchronize()
+    eb.LAUNCHES = eb.BWD_LAUNCHES = sg.BWD_CALLS = 0
+    result = trainer.train(cfg, device=card, devices=devices)
+    got = dict(bwd=eb.BWD_LAUNCHES, sym_bwd=sg.BWD_CALLS, fwd=eb.LAUNCHES)
+    expect = dict(bwd=shards * cfg.layers * GP_SYM_STEPS, sym_bwd=shards * cfg.layers * GP_SYM_STEPS)
+    valid = TrajectoryLoader(data / "valid.npz", pad_multiple=cfg.pad_multiple)
+    val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
+    val_replans, rest = divmod(got["fwd"] - shards * cfg.layers * (GP_SYM_STEPS + val_steps), shards * cfg.layers)
+    if {k: got[k] for k in expect} != expect or val_replans < 0 or rest or result["step"] != GP_SYM_STEPS:
+        raise AssertionError(f"gp B: launches {got}, expected {expect} and the validation's; {result}")
+    records = [json.loads(line) for line in (Path(cfg.model_path) / cfg.run_name / "metrics.jsonl").open()]
+    violations = [r["train/halo_violations"] for r in records if "train/halo_violations" in r]
+    single_cfg = train_config(root, data, "B", **kw)
+    first = gp_vs_one_device("gp B (symmetric, bf16) vs one device", cfg, single_cfg, card, shards * cfg.layers,
+                             GP_SYM_BF16_TOL)
+    # the route's math at the JAX test's f32 tolerances: B's graph and
+    # gather, f32 edge tensors
+    f32 = dict(compute_dtype="float32", symmetric_gather=True)
+    first_f32 = gp_vs_one_device("gp B (symmetric, f32) vs one device", dataclasses.replace(cfg, **f32),
+                                 dataclasses.replace(single_cfg, **f32), card, shards * cfg.layers, GP_SYM_TOL)
+    if first["spec"]["nodes_per_shard"] < GP_SYM_MIN_LOCAL_ROWS:
+        raise AssertionError(f"gp B: {first['spec']} holds fewer local rows than the symmetric route needs")
+    torch.cuda.empty_cache()
+    routes = training_routes("gp B sym", cfg, card, trainer, devices=devices)
+    return dict(config="B", graph_parallel=shards, nodes=first["nodes"], launches=got, expected_launches=expect,
+                validation_replans=val_replans, halo_violations=violations, first_step_vs_one_device=first,
+                first_step_f32_vs_one_device=first_f32, routes=routes, nvidia_smi=smi)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def add_parallel_launches(kernels, par) -> None:
+    """The parallel routes' launches in the kernel summary's
+    ``launches_by_path`` (the multi-scale DP route's per captured step)."""
+    dp, gp, sym = par["dp_A"], par["gp_A"], par["gp_B_sym"]
+    ms = par["dp_ms_dense_f32"]["launches_per_step"]
+    paths = {
+        ("edge_block_fwd", "float32"): {"dp_train_A": dp["launches"]["fwd"], "gp_train_A": gp["launches"]["fwd"],
+                                        "gp_predict_A": gp["predict"]["fwd_launches"]},
+        ("edge_block_fwd", "bfloat16"): {"gp_train_B_sym": sym["launches"]["fwd"]},
+        ("edge_block_bwd", "float32"): {"dp_train_A": dp["launches"]["bwd"], "gp_train_A": gp["launches"]["bwd"]},
+        ("edge_block_bwd", "bfloat16"): {"gp_train_B_sym": sym["launches"]["bwd"]},
+        ("row_gather_take", None): {"dp_train_A": dp["launches"]["take"], "gp_train_A": gp["launches"]["take"],
+                                    "dp_ms_dense_f32_per_step": ms["take"]},
+        ("sorted_segment_sum", None): {"dp_train_A": dp["launches"]["sorted"],
+                                       "gp_train_A": gp["launches"]["sorted"],
+                                       "dp_ms_dense_f32_per_step": ms["sorted"]},
+        ("planned_gather_bwd", None): {"dp_ms_dense_f32_per_step": ms["planned"]},
+    }
+    for entry in kernels:
+        for key in ((entry["name"], entry.get("dtype")), (entry["name"], None)):
+            entry["launches_by_path"].update(paths.get(key, {}))
+
+
+def phase_parallel(root: Path, data: Path, card, smi: str):
+    """Phase 11: every parallel route, each with its launch counters reset
+    just before it; one ``parallel {...}`` line."""
+    import torch
+
+    out = {}
+    for name, fn in (("dp_A", lambda: dp_a_route(root, data, card, smi)),
+                     ("dp_ms_dense_f32", lambda: dp_ms_route(root, data, card, smi)),
+                     ("gp_A", lambda: gp_a_route(root, data, card, smi)),
+                     ("gp_B_sym", lambda: gp_sym_route(root, card, smi))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    busy = {n: {r: out[n]["routes"][r].get("device_ms_per_step") for r in ("captured", "eager")} for n in out}
+    line = dict(design="one process drives a mesh of torch.devices; cuda:0 named twice: 2 replicas / 2 shards on the "
+                       "one card, exchanges and reductions real, one CUDA graph per step",
+                busy_ms_per_step=busy, routes=out, nvidia_smi=smi)
+    log("parallel " + json.dumps(line))
+    return out
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
-    parser.add_argument("--only", choices=["row_gather_bwd"], help="run only this phase (after 1, 2 and 4)")
+    parser.add_argument("--only", choices=["row_gather_bwd", "parallel"], help="run only this phase (after 1, 2 and 4)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card", file=sys.stderr)
@@ -2068,6 +2521,9 @@ def main() -> int:
         card = torch.device("cuda", torch.cuda.current_device())
         if only == "row_gather_bwd":
             log("bwd " + json.dumps(phase_row_gather_bwd(data, card)))
+            return 0
+        if only == "parallel":
+            phase_parallel(root, data, card, smi)
             return 0
         train_rows = {CONFIGS[n]["compute_dtype"]: CONFIGS[n]["batch_size"] * nodes for n in CONFIGS}
 
@@ -2128,6 +2584,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 10: {time.perf_counter() - t_start:.1f} s in all")
 
+        # 11. parallel runs: replicas and shards on the one card
+        parallel = phase_parallel(root, data, card, smi)
+        log(f"phase 11: {time.perf_counter() - t_start:.1f} s in all")
+
     by_dtype = {trained[n][0]["compute_dtype"]: trained[n][0] for n in CONFIGS}
     kernels = []
     for kname, src, replaces in (
@@ -2160,6 +2620,7 @@ def main() -> int:
             kernels.append(entry)
     kernels.extend(gather_summary(gather, probe, ms_runs, trained["A"][0]))
     kernels.extend(bwd_gather_summary(bwd_gather, ms_train, trained["A"][0]))
+    add_parallel_launches(kernels, parallel)
     log("library " + json.dumps({"index_select": kernel_results["index_select"],
                                  "fixed_batch_losses": fixed, "card_vs_cpu_step": step_checks,
                                  "sym_gather_backward_check": sym_check, "c2_cost": c2,

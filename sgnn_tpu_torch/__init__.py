@@ -15,8 +15,10 @@ package mirrors its layout module by module:
              the multi-scale graph hierarchy, simulator and rollout
   data/      synthetic raw data, dataset builder, batch and trajectory
              loaders, the multi-scale static-graph loader
-  train/     config, checkpoints, metrics, the train/validation/rollout
-             entry points (single-scale; multi-scale serving)
+  train/     config, checkpoints, metrics, the loss, the captured training
+             step, the train/validation/rollout entry points (both families)
+  parallel/  device meshes, data-parallel steps, multi-process groups, the
+             single-scale graph partition (halo exchange, guard, rollouts)
   scripts/   the row-gather probe
   utils/     JAX-params <-> state_dict mapping, device and memory helpers
 

@@ -35,7 +35,7 @@ gathers with ``index_select``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -71,6 +71,25 @@ def _slot_mask(degrees: torch.Tensor, m: int, k: int) -> torch.Tensor:
     return (slot < degrees).float().reshape(m * k, 1)
 
 
+def sender_gather(
+    senders: torch.Tensor,  # int[R*K] row indices into the table
+    num_nodes: int,  # the table's row count
+    rev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The per-layer sender gather ``table [num_nodes, H] -> [R*K, H]`` of
+    one graph: ``sym_gather`` with ``rev``; else, where gradients are taken,
+    ``ordered_gather`` over one stable sort of the senders made here (once
+    per forward, for every layer); else ``index_select``. ``num_nodes`` is
+    the TABLE's row count, which a shard's extended table makes larger than
+    its receivers' (``parallel/edge_partition.py``)."""
+    if rev is not None:
+        return lambda table: sym_gather(table, senders, rev[0], rev[1])
+    if torch.is_grad_enabled():
+        sorted_senders, order = torch.sort(senders.int(), stable=True)
+        return lambda table: ordered_gather(table, senders, order, sorted_senders, num_nodes)
+    return lambda table: table.index_select(0, senders)
+
+
 def encode_process_decode_apply_flat(
     epd: EncodeProcessDecode,
     node_features: torch.Tensor,  # f32[M, node_in]
@@ -84,66 +103,80 @@ def encode_process_decode_apply_flat(
     """Full forward over one flat graph; returns f32[M, node_out].
     rev: optional (rev_pos [M, K], rev_ok [M, K]) reverse-edge index."""
     m = node_features.shape[0]
-    maskf = _slot_mask(degrees, m, k)
-    x = mlp_ln_apply(epd._encoder.node_fn, node_features)
-    e = mlp_ln_apply(epd._encoder.edge_fn, edge_features) * maskf
-    if compute_dtype is not None:
-        e = e.to(compute_dtype)
-    return _process_decode(epd, x, e, senders, degrees, k, compute_dtype, rev)
+    x, e = encode_flat(epd, node_features, edge_features, degrees, k, compute_dtype)
+    gather = sender_gather(senders, m, rev)
+    (out,) = _process_decode([epd], [x], [e], [degrees], k, lambda projs: [gather(projs[0])], compute_dtype)
+    return out
 
 
-def _process_decode(
+def encode_flat(
     epd: EncodeProcessDecode,
-    x: torch.Tensor,  # f32[M, D] encoded node latents
-    e: torch.Tensor,  # [M*K, D] encoded edge latents (masked, compute dtype)
-    senders: torch.Tensor,  # int[M*K]
+    node_features: torch.Tensor,  # f32[M, node_in]
+    edge_features: torch.Tensor,  # f32[M*K, edge_in]
     degrees: torch.Tensor,  # f32[M, 1]
     k: int,
     compute_dtype: Optional[torch.dtype],
-    rev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> torch.Tensor:
-    """Processor layers (fused edge block + node update) and decoder."""
-    d, m = x.shape[-1], x.shape[0]
-    order = None
-    if rev is None and torch.is_grad_enabled():
-        sorted_senders, order = torch.sort(senders.int(), stable=True)  # one order for all layers
-    for block in epd._processor.gnn_stacks:
-        edge_mlp, edge_ln = block.edge_fn[0], block.edge_fn[1]
-        if len(edge_mlp.linears) != 2:
-            raise NotImplementedError(
-                "the flat forward runs the fused edge-block kernel, which covers "
-                "one hidden layer per edge MLP (num_mlp_layers == 1)"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(node latents f32[M, D], edge latents [M*K, D] masked, in the compute dtype)."""
+    maskf = _slot_mask(degrees, node_features.shape[0], k)
+    x = mlp_ln_apply(epd._encoder.node_fn, node_features)
+    e = mlp_ln_apply(epd._encoder.edge_fn, edge_features) * maskf
+    return x, e if compute_dtype is None else e.to(compute_dtype)
+
+
+def _process_decode(
+    epds: List[EncodeProcessDecode],  # per shard: the model, on the shard's device
+    xs: List[torch.Tensor],  # per shard f32[M_s, D] encoded node latents
+    es: List[torch.Tensor],  # per shard [M_s*K, D] encoded edge latents (masked, compute dtype)
+    degrees: List[torch.Tensor],  # per shard f32[M_s, 1]
+    k: int,
+    gather: Callable[[List[torch.Tensor]], List[torch.Tensor]],
+    compute_dtype: Optional[torch.dtype],
+) -> List[torch.Tensor]:
+    """Processor layers (fused edge block + node update) and decoder, over
+    the shards of one graph in lockstep (one graph on one device is one
+    shard). ``gather`` is the per-layer sender gather: it takes every
+    shard's sender projections ``[M_s, H]`` (already in the compute dtype)
+    and returns every shard's gathered senders ``[M_s*K, H]``: the hook by
+    which the graph-partitioned forward halo-exchanges the projections
+    before gathering (``parallel/edge_partition.py``), as the JAX
+    ``_process_decode``'s ``gather_fn``. Returns per shard f32[M_s, node_out]."""
+    d = xs[0].shape[-1]
+    xs, es = list(xs), list(es)
+    for layer in range(len(epds[0]._processor.gnn_stacks)):
+        blocks = [epd._processor.gnn_stacks[layer] for epd in epds]
+        proj_js = []
+        for block, x in zip(blocks, xs):
+            if len(block.edge_fn[0].linears) != 2:
+                raise NotImplementedError(
+                    "the flat forward runs the fused edge-block kernel, which covers "
+                    "one hidden layer per edge MLP (num_mlp_layers == 1)"
+                )
+            (_, w_j, _), _ = split_first_layer(block.edge_fn[0], (d, d, d))
+            proj_j = x @ w_j  # [M_s, H]
+            proj_js.append(proj_j if compute_dtype is None else proj_j.to(compute_dtype))
+        xjs = gather(proj_js)  # [M_s*K, H]
+        for s, (block, x) in enumerate(zip(blocks, xs)):
+            edge_mlp, edge_ln = block.edge_fn[0], block.edge_fn[1]
+            (w_i, _, w_e), b_e = split_first_layer(edge_mlp, (d, d, d))
+            w2 = edge_mlp.linears[1]
+            es[s], agg = fused_edge_block(
+                es[s],
+                xjs[s],
+                x @ w_i,  # proj_i [M_s, H]
+                degrees[s],
+                w_e.contiguous(),
+                b_e,
+                w2.weight.t().contiguous(),
+                w2.bias,
+                edge_ln.weight,
+                edge_ln.bias,
+                k,
             )
-        (w_i, w_j, w_e), b_e = split_first_layer(edge_mlp, (d, d, d))
-        proj_i = x @ w_i  # [M, H]
-        proj_j = x @ w_j
-        if compute_dtype is not None:
-            proj_j = proj_j.to(compute_dtype)
-        if rev is not None:
-            xj = sym_gather(proj_j, senders, rev[0], rev[1])  # [M*K, H]
-        elif order is not None:
-            xj = ordered_gather(proj_j, senders, order, sorted_senders, m)
-        else:
-            xj = proj_j.index_select(0, senders)
-        w2 = edge_mlp.linears[1]
-        e, agg = fused_edge_block(
-            e,
-            xj,
-            proj_i,
-            degrees,
-            w_e.contiguous(),
-            b_e,
-            w2.weight.t().contiguous(),
-            w2.bias,
-            edge_ln.weight,
-            edge_ln.bias,
-            k,
-        )
-        # node update: node_fn(cat[agg, x]) + residual
-        node_mlp, node_ln = block.node_fn[0], block.node_fn[1]
-        (w_agg, w_x), b_n = split_first_layer(node_mlp, (d, d))
-        hn = agg.float() @ w_agg + x @ w_x + b_n
-        upd = layer_norm(mlp_tail(node_mlp, hn), node_ln.weight, node_ln.bias)
-        x = x + upd
+            # node update: node_fn(cat[agg, x]) + residual
+            node_mlp, node_ln = block.node_fn[0], block.node_fn[1]
+            (w_agg, w_x), b_n = split_first_layer(node_mlp, (d, d))
+            hn = agg.float() @ w_agg + x @ w_x + b_n
+            xs[s] = x + layer_norm(mlp_tail(node_mlp, hn), node_ln.weight, node_ln.bias)
     # decoder: node MLP, no LayerNorm
-    return epd._decoder.node_fn(x)
+    return [epd._decoder.node_fn(x) for epd, x in zip(epds, xs)]

@@ -8,10 +8,12 @@ captured and replayed once per step, so that the graph does not depend on
 the trajectory's length and its capture costs one step:
 
   * a step is ``step(window, gt_pos, gt_strain, **fixed) -> (new window,
-    next_pos, strain)`` (``physics/rollout.rollout_step``,
-    ``physics/multi_scale_simulator.ms_rollout_step``); ``fixed`` holds
-    what stays the same over a trajectory: particle types, the erosional
-    mask, and the node mask or the static multi-scale graph;
+    next_pos, strain, *extra)`` (``physics/rollout.rollout_step``,
+    ``physics/multi_scale_simulator.ms_rollout_step``; the graph-partitioned
+    step of ``parallel/edge_partition.py`` adds one extra output, its halo
+    guard's count); ``fixed`` holds what stays the same over a trajectory:
+    particle types, the erosional mask, and the node mask or the static
+    multi-scale graph;
   * ``CapturedStep`` keeps static buffers for all of them and for the
     step's two outputs, and ``body`` runs the step on those buffers. It
     computes the new window first and then copies it over the old one (a
@@ -27,7 +29,11 @@ the trajectory's length and its capture costs one step:
     fails raises: nothing retreats to the eager loop;
   * on CPU tensors ``body`` runs eagerly on the same buffers, so the CPU
     tests drive the same code; ``roll(..., capture=False)`` is the eager
-    loop, kept for comparisons.
+    loop, kept for comparisons;
+  * ``CapturedStep.call`` runs one step on inputs the caller sets anew each
+    time (the replanning rollout of ``parallel/edge_partition.py``, which
+    re-sorts the window between steps); ``capture=False`` runs ``body``
+    eagerly over the buffers (a step whose shards span several devices).
 
 The graph bakes in the addresses of everything it reads. Its cache is
 kept per module (``cached_step``) and keyed on the addresses, shapes and
@@ -154,14 +160,15 @@ class CapturedStep:
     """Static buffers of one rollout step, and the step captured over them
     (on the card) or run over them eagerly (on the CPU)."""
 
-    def __init__(self, window, gt_positions, gt_strains, fixed):
-        self.device = window.device
+    def __init__(self, window, gt_positions, gt_strains, fixed, capture: bool = True):
+        self.device, self.capture = window.device, capture
         self.window = _buffer(window)  # [N, S, dim], shifted in place
         self.gt_pos = _buffer(gt_positions, gt_positions.shape[1:])  # [N, dim]
         self.gt_strain = _buffer(gt_strains, gt_strains.shape[1:])  # [N]
         self.next_pos = _buffer(self.gt_pos)
         self.strain = _buffer(self.gt_strain)
         self.fixed = _tree_map(_buffer, fixed)
+        self.extra: Optional[List[torch.Tensor]] = None  # the step's extra outputs, made by its first run
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Optional[LaunchRecord] = None
         self.capture_seconds: Optional[float] = None  # host time of the capture (the warm-up step apart)
@@ -170,33 +177,53 @@ class CapturedStep:
 
     def body(self) -> None:
         """One step over the static buffers, launched eagerly (or captured)."""
-        window, next_pos, strain = self._step(self.window, self.gt_pos, self.gt_strain, **self.fixed)
+        window, next_pos, strain, *extra = self._step(self.window, self.gt_pos, self.gt_strain, **self.fixed)
         self.window.copy_(window)
         self.next_pos.copy_(next_pos)
         self.strain.copy_(strain)
+        if self.extra is None:
+            self.extra = [_buffer(t) for t in extra]
+        for buf, t in zip(self.extra, extra):
+            buf.copy_(t)
 
-    def run(self, step: Step, window, gt_positions, gt_strains, fixed) -> Tuple[torch.Tensor, torch.Tensor]:
+    def run(self, step: Step, window, gt_positions, gt_strains, fixed) -> Tuple[torch.Tensor, ...]:
         """The trajectory from ``window`` over the ground truth ``gt_positions``
         [T, N, dim] and ``gt_strains`` [T, N]: (predicted positions [T, N,
-        dim], predicted strains [T, N])."""
+        dim], predicted strains [T, N], *each extra output stacked [T, ...])."""
         self._step = step
         try:
             self.window.copy_(window)
             _tree_map(lambda buf, t: buf.copy_(t), self.fixed, fixed)
             pred_pos = gt_positions.new_empty(gt_positions.shape)
             pred_strain = gt_strains.new_empty(gt_strains.shape)
+            extras = []
             for t in range(gt_positions.shape[0]):
                 self.gt_pos.copy_(gt_positions[t])
                 self.gt_strain.copy_(gt_strains[t])
                 self._advance()
                 pred_pos[t].copy_(self.next_pos)
                 pred_strain[t].copy_(self.strain)
-            return pred_pos, pred_strain
+                extras.append([e.clone() for e in self.extra])
+            return (pred_pos, pred_strain, *(torch.stack(e) for e in zip(*extras)))
+        finally:
+            self._step = None
+
+    def call(self, step: Step, window, gt_pos, gt_strain, fixed) -> Tuple[torch.Tensor, ...]:
+        """One step on these inputs: (new window, next_pos, strain, *extra),
+        the static buffers themselves (read them before the next call)."""
+        self._step = step
+        try:
+            self.window.copy_(window)
+            self.gt_pos.copy_(gt_pos)
+            self.gt_strain.copy_(gt_strain)
+            _tree_map(lambda buf, t: buf.copy_(t), self.fixed, fixed)
+            self._advance()
+            return (self.window, self.next_pos, self.strain, *self.extra)
         finally:
             self._step = None
 
     def _advance(self) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             self.body()
         elif self.graph is None:
             self._warm_up_and_capture()
@@ -255,17 +282,17 @@ def roll(
     capture: bool,
     owner: torch.nn.Module,
     key: tuple,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(predicted positions [T, N, dim], strains [T, N]) of the rollout of
-    ``step``: through ``owner``'s ``CapturedStep`` under ``key`` (and the
-    shapes of the inputs), or with ``capture=False`` the eager loop."""
+) -> Tuple[torch.Tensor, ...]:
+    """(predicted positions [T, N, dim], strains [T, N], *the step's extra
+    outputs stacked [T, ...]) of the rollout of ``step``: through
+    ``owner``'s ``CapturedStep`` under ``key`` (and the shapes of the
+    inputs), or with ``capture=False`` the eager loop."""
     if not capture:
-        pred_pos, pred_strain = [], []
+        outs = []
         for gt_pos, gt_strain in zip(gt_positions, gt_strains):
-            window, next_pos, strain = step(window, gt_pos, gt_strain, **fixed)
-            pred_pos.append(next_pos)
-            pred_strain.append(strain)
-        return torch.stack(pred_pos), torch.stack(pred_strain)
+            window, *out = step(window, gt_pos, gt_strain, **fixed)
+            outs.append(out)
+        return tuple(torch.stack(o) for o in zip(*outs))
     # not the trajectory's length: the graph is one step's
     per_step = [(tuple(t.shape[1:]), t.dtype, t.device) for t in (gt_positions, gt_strains)]
     key = (*key, _spec(window), *per_step, _spec(fixed))

@@ -51,6 +51,10 @@ class NormStats(NamedTuple):
     acc_mean: torch.Tensor
     acc_std: torch.Tensor
 
+    def to(self, device) -> "NormStats":
+        """The statistics on ``device`` (a replica's or a shard's)."""
+        return NormStats(*(t.to(device) for t in self))
+
 
 def make_norm_stats(metadata: dict, noise_std: float, device: Device = "cpu") -> NormStats:
     """std = sqrt(std^2 + noise^2), as the reference simulator builder."""
@@ -196,9 +200,13 @@ def _node_features_batched(sim, cfg, stats, position_sequences, particle_types):
     return torch.cat(feats, dim=-1)
 
 
-def _edge_features(last: torch.Tensor, nl: NeighborList, radius: float) -> torch.Tensor:
-    """[N, K, dim+1]: (p_sender - p_receiver)/R and its norm, masked."""
-    disp = (last[nl.senders] - last[:, None, :]) / radius
+def _edge_features(
+    last: torch.Tensor, nl: NeighborList, radius: float, table: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """[N, K, dim+1]: (p_sender - p_receiver)/R and its norm, masked. The
+    senders index ``table`` (default: ``last``; a graph shard's extended
+    array, ``parallel/edge_partition.py``)."""
+    disp = ((last if table is None else table)[nl.senders] - last[:, None, :]) / radius
     dist = torch.linalg.vector_norm(disp, dim=-1, keepdim=True)
     return torch.cat([disp, dist], dim=-1) * nl.mask[..., None].to(disp.dtype)
 
@@ -257,6 +265,14 @@ def predict_positions(
     return next_positions, pred[:, -1]
 
 
+def refuse_capacity_knobs(cfg: SimulatorConfig) -> None:
+    """Raise for the capacity knobs the port does not have yet."""
+    if cfg.band_nodes is not None or cfg.remat:
+        raise NotImplementedError(
+            "band_nodes and remat are not ported yet (ROADMAP.md, Queue A item 7: capacity knobs)"
+        )
+
+
 def forward_batched(
     sim: LearnedSimulator,
     cfg: SimulatorConfig,
@@ -275,10 +291,7 @@ def forward_batched(
     module's unfused route; its packed fusion is not ported).
     Returns (normalized accelerations [B, N, dim], strain [B, N]).
     """
-    if cfg.band_nodes is not None or cfg.remat:
-        raise NotImplementedError(
-            "band_nodes and remat are not ported yet (ROADMAP.md, Queue A item 7: capacity knobs)"
-        )
+    refuse_capacity_knobs(cfg)
     b, n = position_sequences.shape[:2]
     dev = position_sequences.device
     if node_mask is None:

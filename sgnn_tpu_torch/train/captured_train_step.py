@@ -27,6 +27,15 @@ draws ``z``, and for the metrics, and on the card:
   * the metrics are the graph's static outputs, left on the device: read
     them before the next call overwrites them.
 
+The parallel steps are ``TrainStep``s too
+(``parallel/data_parallel.DataParallelStep``,
+``parallel/edge_partition.PartitionedTrainStep``): they replace ``update``
+(the replicas' or shards' forward and backward, the gradient sum, Adam)
+and, for data parallelism across processes, ``noise_shape`` (the global
+batch's); ``capturable`` is False where their mesh spans several devices
+or processes, and the body then runs eagerly over the buffers on the card
+too. ``make_multi_step`` stacks steps as JAX's scanned multi-step does.
+
 The graph bakes in the addresses of what it reads and writes, so it is
 kept under a key of the parameters', Adam's state's and the lr's
 addresses and of the batch's shapes: whatever replaces one of them (say,
@@ -42,10 +51,11 @@ it at every replay.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from sgnn_tpu_torch.data.prefetch import tree_map
 from sgnn_tpu_torch.physics.captured_step import LaunchRecord, _buffer, _spec, _tree_map
 from sgnn_tpu_torch.physics.noise import draw_into, draw_shape, random_walk_position_noise
 
@@ -80,6 +90,9 @@ class TrainStep:
     ):
         self.loss_fn, self.optimizer, self.sched = loss_fn, optimizer, sched
         self.noise_std, self.generator, self.capture = noise_std, generator, capture
+        # False: the step runs eagerly over its buffers on the card too (a
+        # parallel step over a mesh of several devices, or of several processes)
+        self.capturable = True
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Optional[LaunchRecord] = None
         self.capture_seconds: Optional[float] = None  # host time of the capture (the warm-up apart)
@@ -100,7 +113,7 @@ class TrainStep:
         set_lr(self.optimizer, self.sched(step))
         if noise is not None:
             return self.update(batch, noise)
-        shape, device = tuple(batch["positions"].shape), batch["positions"].device
+        shape, device = self.noise_shape(batch), batch["positions"].device
         if not self.capture:
             z = draw_into(torch.empty(draw_shape(shape), device=device), self.generator)
             return self.update(batch, random_walk_position_noise(shape, self.noise_std, z=z))
@@ -110,7 +123,7 @@ class TrainStep:
             self.z = torch.empty(draw_shape(shape), device=device)
         _tree_map(lambda buf, t: buf.copy_(t), self.batch, batch)
         draw_into(self.z, self.generator)
-        if device.type != "cuda":
+        if device.type != "cuda" or not self.capturable:
             metrics = self._body()
             self._key = self._key_of(self.batch)  # Adam's state exists now
             return metrics
@@ -121,8 +134,12 @@ class TrainStep:
         self.replays += 1
         return self.metrics
 
+    def noise_shape(self, batch) -> tuple:
+        """The shape of the noise one step draws: the batch's positions'."""
+        return tuple(batch["positions"].shape)
+
     def _body(self) -> Metrics:
-        shape = tuple(self.batch["positions"].shape)
+        shape = self.noise_shape(self.batch)
         return self.update(self.batch, random_walk_position_noise(shape, self.noise_std, z=self.z))
 
     def _key_of(self, batch) -> tuple:
@@ -160,3 +177,20 @@ class TrainStep:
             self.optimizer.zero_grad(set_to_none=True)
         self.graph = self.launches = self._key = None
         self.batch = self.z = self.metrics = None
+
+
+def make_multi_step(step_fn: TrainStep) -> Callable:
+    """``(batches, step, noise=None) -> metrics stacked [T]``: ``T`` calls of
+    ``step_fn``, each on its own batch of ``batches`` (every leaf stacked
+    ``[T, ...]``; ``noise`` ``[T, ...]``): the math of JAX's scanned
+    multi-step (``make_train_multi_step`` and its parallel twins), step
+    after step, as the trainers' ``inner_steps`` replays."""
+
+    def multi(batches, step: int, noise: Optional[torch.Tensor] = None) -> Metrics:
+        out: List[Metrics] = []
+        for i in range(batches["positions"].shape[0]):
+            m = step_fn(tree_map(lambda t: t[i], batches), step + i, None if noise is None else noise[i])
+            out.append({k: v.clone() for k, v in m.items()})
+        return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
+    return multi

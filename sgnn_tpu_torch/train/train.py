@@ -23,26 +23,56 @@ JAX's trainer) and the step is captured in a CUDA graph and replayed
 (``train/captured_train_step.TrainStep``; Adam is capturable, its lr a
 device tensor); ``inner_steps`` are that many replays. Best-only
 checkpoints on the validation rollout loss, a final checkpoint when no
-validation ran or on interrupt, resume from ``model_file``. Data-parallel,
-graph-parallel and the graph audit are not ported yet (ROADMAP.md, Queue
-A items 6 and 8).
+validation ran or on interrupt, resume from ``model_file``.
+
+Parallel runs (``sgnn_tpu/train/train.py:364-452``), over a mesh of
+``devices`` (an explicit list, which may name one device several times;
+by default that many distinct CUDA devices, ``parallel/mesh.make_mesh``):
+
+  * ``data_parallel: P`` splits each batch over P replicas
+    (``parallel/data_parallel.DataParallelStep``: the global masked mean,
+    the global batch's noise, gradients summed in replica order, one Adam
+    step); ``batch_size`` must divide by P;
+  * ``graph_parallel: P`` (with ``batch_size: 1``, and not with
+    ``data_parallel``) plans one static slab partition over the training
+    split's first, middle and last frames (its radius widened by 4 sigma of
+    the noise walk), x-sorts each sample into it (``partition_sample``) and
+    trains with ``parallel/edge_partition.PartitionedTrainStep``, whose halo
+    guard rejects a step inside the step; a ``RejectionTracker`` aborts
+    after 20 consecutive rejected log points. Validation and ``predict``
+    roll out with ``make_partitioned_host_rollout`` (re-planning when the
+    guard fires).
+
+With every replica or shard on one device, the step is captured as one
+CUDA graph. The graph audit is not ported yet (ROADMAP.md, Queue A item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import pickle
 import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from sgnn_tpu_torch.data.loader import SampleBatcher, TrajectoryLoader, load_metadata
 from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
+from sgnn_tpu_torch.parallel.data_parallel import DataParallelStep
+from sgnn_tpu_torch.parallel.edge_partition import (
+    PartitionedTrainStep,
+    PartitionSpec1D,
+    RejectionTracker,
+    dataset_partition_plan,
+    make_replanning_rollout,
+    partition_sample,
+)
+from sgnn_tpu_torch.parallel.mesh import Mesh, make_mesh
 from sgnn_tpu_torch.physics.rollout import rollout as rollout_fn
 from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
@@ -55,6 +85,7 @@ from sgnn_tpu_torch.physics.simulator import (
 from sgnn_tpu_torch.train.captured_train_step import TrainStep
 from sgnn_tpu_torch.train.checkpoint import CheckpointManager, load_optimizer_state, train_state
 from sgnn_tpu_torch.train.config import TrainConfig, load_config
+from sgnn_tpu_torch.train.loss import one_step_loss
 from sgnn_tpu_torch.train.metrics import MetricLogger
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 from sgnn_tpu_torch.utils.resource_monitor import ResourceMonitor
@@ -62,6 +93,7 @@ from sgnn_tpu_torch.utils.resource_monitor import ResourceMonitor
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8  # optax.adam's defaults
 PREFETCH_DEPTH = 2  # batches staged ahead, as JAX's trainers
+REJECTION_LIMIT = 20  # consecutive rejected log points before a graph-parallel run aborts
 
 
 def simulator_config_from(cfg: TrainConfig, metadata: dict) -> SimulatorConfig:
@@ -137,6 +169,23 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[
     return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
+def make_loss_fn(sim: LearnedSimulator, sim_cfg: SimulatorConfig, stats: NormStats, cfg: TrainConfig) -> Callable:
+    """The loss ``(batch, noise, denom=None) -> (loss, aux)`` of ``sim`` on a
+    ``[B, N, ...]`` batch: every term a masked sum over ``denom`` (default:
+    the batch's masked count; a data-parallel replica gets the global one)."""
+
+    def loss_fn(batch, noise, denom=None):
+        pred_acc, target_acc, pred_strain = predict_accelerations_batched(
+            sim, sim_cfg, stats, batch["next_position"], noise, batch["positions"],
+            batch["particle_type"], batch["node_mask"],
+        )
+        return one_step_loss(pred_acc, target_acc, pred_strain, batch["next_strain"], batch["node_mask"],
+                             weight_position=cfg.loss_weight_position, weight_strain=cfg.loss_weight_strain,
+                             denom=denom)
+
+    return loss_fn
+
+
 def make_train_step(
     sim: LearnedSimulator,
     sim_cfg: SimulatorConfig,
@@ -151,38 +200,14 @@ def make_train_step(
     one (the schedule's argument); ``noise`` replaces the draw from
     ``generator`` (the parity tests inject JAX's). Metrics are 0-d tensors
     left on the device."""
-
-    def loss_fn(batch, noise):
-        pred_acc, target_acc, pred_strain = predict_accelerations_batched(
-            sim, sim_cfg, stats, batch["next_position"], noise, batch["positions"],
-            batch["particle_type"], batch["node_mask"],
-        )
-        mask = batch["node_mask"].to(pred_acc.dtype)  # [B, N]
-        denom = torch.clamp(mask.sum(), min=1.0)
-        sq_acc = (pred_acc - target_acc) ** 2  # [B, N, dim]
-        loss_pos = sq_acc.sum(dim=-1)  # the reference sums the dims
-        loss_strain = (pred_strain - batch["next_strain"]) ** 2
-        loss = cfg.loss_weight_position * loss_pos + cfg.loss_weight_strain * loss_strain
-        loss = (loss * mask).sum() / denom
-        loss_xy = (sq_acc * mask[..., None]).sum(dim=(0, 1)) / denom
-        aux = {
-            "train/loss-position": (loss_pos * mask).sum() / denom,
-            "train/loss-strain": (loss_strain * mask).sum() / denom,
-            "train/loss-x": loss_xy[0],
-            "train/loss-y": loss_xy[1],
-        }
-        if sim_cfg.dim == 3:
-            aux["train/loss-z"] = loss_xy[2]
-        return loss, aux
-
-    return TrainStep(loss_fn, optimizer, lr_schedule(cfg), cfg.noise_std, generator)
+    return TrainStep(make_loss_fn(sim, sim_cfg, stats, cfg), optimizer, lr_schedule(cfg), cfg.noise_std, generator)
 
 
 @dataclass
 class Training:
     """What ``build_training`` wires together for ``train`` (of either
     family: the multi-scale trainer fills it with its own simulator and
-    batcher)."""
+    batcher); ``mesh`` and ``spec`` for a parallel run."""
 
     sim: torch.nn.Module
     sim_cfg: object
@@ -190,12 +215,55 @@ class Training:
     optimizer: torch.optim.Adam
     step_fn: TrainStep
     batcher: SampleBatcher
+    mesh: Optional[Mesh] = None
+    spec: Optional[PartitionSpec1D] = None
+
+    def epochs(self) -> Iterator[dict]:
+        """The training batches, endlessly; for a graph-parallel run each
+        sample x-sorted into the plan's slabs (``partition_sample``)."""
+        source = self.batcher.epochs()
+        if self.spec is None:
+            return source
+        return (partition_sample(b, self.spec) for b in source)
 
 
-def build_training(cfg: TrainConfig, device: torch.device, batch_size: Optional[int] = None) -> Training:
+def check_parallel(cfg: TrainConfig) -> None:
+    """The JAX trainer's config errors for parallel runs."""
+    if cfg.graph_parallel > 1:
+        if cfg.data_parallel > 1:
+            raise ValueError("data_parallel and graph_parallel are mutually exclusive")
+        if cfg.batch_size != 1:
+            raise ValueError("graph_parallel trains one partitioned graph per step; set batch_size: 1")
+    if cfg.data_parallel > 1 and cfg.batch_size % cfg.data_parallel:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by data_parallel {cfg.data_parallel}")
+
+
+def parallel_mesh(cfg: TrainConfig, device: torch.device, devices: Optional[Sequence] = None) -> Optional[Mesh]:
+    """The mesh of a data- or graph-parallel run (None for one device): over
+    ``devices`` if given, else that many distinct CUDA devices; its first
+    device must be ``device``."""
+    if cfg.data_parallel <= 1 and cfg.graph_parallel <= 1:
+        return None
+    mesh = make_mesh(data=cfg.data_parallel, graph=cfg.graph_parallel, devices=devices)
+    if mesh.primary != resolve_device(device):
+        raise ValueError(f"the mesh's first device is {mesh.primary}, the run's device {device}")
+    return mesh
+
+
+def partition_frames(trajectories) -> list:
+    """First, middle and last frame of every trajectory: what a dataset
+    partition plan covers."""
+    return [pos[t] for pos, _, _ in trajectories for t in (0, pos.shape[0] // 2, pos.shape[0] - 1)]
+
+
+def build_training(
+    cfg: TrainConfig, device: torch.device, batch_size: Optional[int] = None, devices: Optional[Sequence] = None
+) -> Training:
     """The model from ``cfg.seed``, its optimizer, the training step (noise
-    from a generator seeded from ``cfg.seed``) and the batcher of the
+    from a generator seeded from ``cfg.seed``; data- or graph-parallel over
+    the mesh of ``devices`` when the config asks) and the batcher of the
     training split; ``batch_size`` overrides ``cfg.batch_size``."""
+    check_parallel(cfg)
     data_dir = Path(cfg.data_path)
     metadata = load_metadata(data_dir)
     sim_cfg = simulator_config_from(cfg, metadata)
@@ -203,12 +271,28 @@ def build_training(cfg: TrainConfig, device: torch.device, batch_size: Optional[
     sim = simulator_init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=device)
     optimizer = make_optimizer(sim, cfg)
     noise_gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    step_fn = make_train_step(sim, sim_cfg, stats, cfg, optimizer, noise_gen)
     batcher = SampleBatcher(
         data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size,
         pad_multiple=cfg.pad_multiple, seed=cfg.seed,
     )
-    return Training(sim, sim_cfg, stats, optimizer, step_fn, batcher)
+    mesh, spec = parallel_mesh(cfg, device, devices), None
+    sched = lr_schedule(cfg)
+    if cfg.data_parallel > 1:
+        step_fn = DataParallelStep(lambda m, d: make_loss_fn(m, sim_cfg, stats.to(d), cfg), sim, mesh, optimizer, sched,
+                                   cfg.noise_std, noise_gen)
+    elif cfg.graph_parallel > 1:
+        # plan with a noise margin: the step adds a random walk of cumulative
+        # std noise_std * sqrt(S - 1) at the last frame, 4 sigma of it on
+        # each of two nodes, so that the guard does not fire on clean frames
+        plan_radius = cfg.connection_radius + 4.0 * cfg.noise_std * float(
+            np.sqrt(max(cfg.input_sequence_length - 1, 1)))
+        spec = dataset_partition_plan(partition_frames(batcher.trajectories), cfg.graph_parallel, plan_radius)
+        step_fn = PartitionedTrainStep(mesh, sim_cfg, stats, spec, sim, optimizer, sched, cfg.noise_std, noise_gen,
+                                       loss_weight_position=cfg.loss_weight_position,
+                                       loss_weight_strain=cfg.loss_weight_strain)
+    else:
+        step_fn = make_train_step(sim, sim_cfg, stats, cfg, optimizer, noise_gen)
+    return Training(sim, sim_cfg, stats, optimizer, step_fn, batcher, mesh, spec)
 
 
 def make_rollout(
@@ -223,6 +307,29 @@ def make_rollout(
             sim, sim_cfg, stats, positions, types, strains,
             node_mask=node_mask, inference_mode=mode, device=device,
         )
+
+    return _rollout
+
+
+def make_partitioned_host_rollout(
+    mesh: Mesh, sim_cfg: SimulatorConfig, stats: NormStats, spec: PartitionSpec1D, mode: str
+) -> Callable:
+    """The graph-parallel rollout with host-side partitioning and re-planning
+    (``edge_partition.make_replanning_rollout``), with ``make_rollout``'s
+    call signature, so ``evaluate_split`` takes it unchanged."""
+    run = make_replanning_rollout(mesh, sim_cfg, stats, spec, inference_mode=mode)
+
+    def _rollout(sim, positions, types, strains, node_mask):
+        out = run(sim, positions, types, strains, node_mask)
+        if int(out["replans"]):
+            print(f"  partition re-planned {int(out['replans'])}x during rollout")
+        viol = int(out["halo_violations"].sum())
+        if viol:
+            print(
+                f"  WARNING: {viol} residual halo violations AFTER re-planning — the plan's "
+                "slab/halo sizes are too small for this geometry; rebuild the spec with more slack"
+            )
+        return out
 
     return _rollout
 
@@ -252,25 +359,19 @@ def evaluate_split(
     return outputs, summary
 
 
-def _refuse_parallel(cfg: TrainConfig) -> None:
-    if cfg.graph_parallel > 1 or cfg.data_parallel > 1:
-        raise NotImplementedError(
-            "data_parallel and graph_parallel are not ported yet (ROADMAP.md, Queue A item 6)"
-        )
-
-
-def train(cfg: TrainConfig, device: Device = None) -> dict:
-    """Train on ``device`` (CUDA unless told otherwise); returns
+def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] = None) -> dict:
+    """Train on ``device`` (CUDA unless told otherwise; a parallel run over
+    the mesh of ``devices``, whose first is ``device``); returns
     ``{"step", "lowest_eval_loss"}``."""
     dev = resolve_device(device)
-    _refuse_parallel(cfg)
+    check_parallel(cfg)
     if cfg.debug_graph:
         raise NotImplementedError("debug_graph is not ported yet (ROADMAP.md, Queue A item 8)")
     inner = max(1, int(cfg.inner_steps))
     for name in ("log_every", "nsave_steps", "ntraining_steps"):
         if getattr(cfg, name) % inner:
             raise ValueError(f"{name}={getattr(cfg, name)} must be a multiple of inner_steps={inner}")
-    built = build_training(cfg, dev)
+    built = build_training(cfg, dev, devices=devices)
     sim, sim_cfg, stats, optimizer = built.sim, built.sim_cfg, built.stats, built.optimizer
     ckpt_dir = Path(cfg.model_path) / cfg.run_name
     ckpt = CheckpointManager(ckpt_dir)
@@ -287,9 +388,17 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
 
     batcher, train_step = built.batcher, built.step_fn
     valid_loader = TrajectoryLoader(Path(cfg.data_path) / "valid.npz", pad_multiple=cfg.pad_multiple)
-    rollout = make_rollout(sim_cfg, stats, cfg.inference_mode, dev)
+    if built.spec is not None:
+        rollout = make_partitioned_host_rollout(built.mesh, sim_cfg, stats, built.spec, cfg.inference_mode)
+        print(f"graph-parallel: {cfg.graph_parallel} shards x {built.spec.nodes_per_shard} nodes "
+              f"(halo {built.spec.halo})")
+    else:
+        rollout = make_rollout(sim_cfg, stats, cfg.inference_mode, dev)
+    if cfg.data_parallel > 1:
+        print(f"data-parallel over {cfg.data_parallel} replicas")
     monitor = ResourceMonitor(dev)
     sched = lr_schedule(cfg)
+    rejection_tracker = RejectionTracker(limit=REJECTION_LIMIT)
     print(
         f"training: layers={cfg.layers} hidden={cfg.hidden_dim} batch={cfg.batch_size} "
         f"nodes_padded={batcher.num_nodes} slots={sim_cfg.slots} "
@@ -298,7 +407,7 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
     )
 
     logger = MetricLogger(ckpt_dir, use_wandb=cfg.log, project=cfg.project_name, run_name=cfg.run_name)
-    source = DevicePrefetcher(batcher.epochs(), depth=PREFETCH_DEPTH, device=dev)
+    source = DevicePrefetcher(built.epochs(), depth=PREFETCH_DEPTH, device=dev)
     interrupted = False
     t_last = time.perf_counter()
     try:
@@ -320,6 +429,17 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
                     f"pos={metrics['train/loss-position']:.6f} "
                     f"strain={metrics['train/loss-strain']:.6f} ({dt * 1e3:.1f} ms/step)"
                 )
+                if metrics.get("train/halo_violations", 0) > 0:
+                    print(
+                        "  NOTE: halo-contract violations this step — the noisy sample geometry "
+                        "outgrew the static partition plan; the update was REJECTED in-step "
+                        "(train/halo_rejected) and the sample skipped (step and lr schedule "
+                        "advance). Frequent rejections mean the plan's noise margin is too thin: "
+                        "rebuild with a larger halo_slack."
+                    )
+                # a plan the geometry outgrew for good rejects every step: abort
+                # after REJECTION_LIMIT consecutive rejected log points
+                rejection_tracker.update(metrics.get("train/halo_rejected", 0) > 0)
 
             if step % cfg.nsave_steps == 0 and step > 0:
                 print(f"validating at step {step}...")
@@ -363,11 +483,12 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
     return {"step": step, "lowest_eval_loss": lowest_eval_loss}
 
 
-def predict(cfg: TrainConfig, device: Device = None) -> dict:
+def predict(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] = None) -> dict:
     """Rollout over valid (mode=valid) or test (mode=rollout) trajectories,
-    on ``device`` (CUDA unless told otherwise)."""
+    on ``device`` (CUDA unless told otherwise); ``graph_parallel: P``
+    partitions each trajectory over the mesh of ``devices`` (first:
+    ``device``). ``data_parallel`` plays no part in a rollout, as in JAX."""
     dev = resolve_device(device)
-    _refuse_parallel(cfg)
     data_dir = Path(cfg.data_path)
     metadata = load_metadata(data_dir)
     sim_cfg = simulator_config_from(cfg, metadata)
@@ -385,11 +506,17 @@ def predict(cfg: TrainConfig, device: Device = None) -> dict:
 
     split = "test" if cfg.mode == "rollout" else "valid"
     loader = TrajectoryLoader(data_dir / f"{split}.npz", pad_multiple=cfg.pad_multiple)
+    if cfg.graph_parallel > 1:
+        mesh = parallel_mesh(dataclasses.replace(cfg, data_parallel=1), dev, devices)
+        spec = dataset_partition_plan(partition_frames(loader.trajectories), cfg.graph_parallel, cfg.connection_radius)
+        rollout = make_partitioned_host_rollout(mesh, sim_cfg, stats, spec, cfg.inference_mode)
+        print(f"graph-parallel rollout: {cfg.graph_parallel} shards x {spec.nodes_per_shard} nodes "
+              f"(halo {spec.halo})")
+    else:
+        rollout = make_rollout(sim_cfg, stats, cfg.inference_mode, dev)
     monitor = ResourceMonitor(dev)
     monitor.start()
-    outputs, summary = evaluate_split(
-        sim, sim_cfg, stats, loader, make_rollout(sim_cfg, stats, cfg.inference_mode, dev)
-    )
+    outputs, summary = evaluate_split(sim, sim_cfg, stats, loader, rollout)
     run_stats = monitor.stop()
 
     if cfg.mode == "rollout":

@@ -29,8 +29,15 @@ True or False) and rolls every trajectory out with ``ms_rollout``, its
 step captured in a CUDA graph on the card (``_rollout_fn``, the
 counterpart of JAX's ``make_jit_rollout``; the validation takes it too). The
 multi-scale family scores a rollout by its PER-STEP RMSE: total, position
-and strain at the last step, one_step at the first. Data-parallel and
-graph-parallel runs are not ported yet (ROADMAP.md, Queue A item 6).
+and strain at the last step, one_step at the first.
+
+``data_parallel: P`` trains over P replicas (``sgnn_tpu/train/
+train_multi_scale.py:356-381``; ``parallel/data_parallel.DataParallelStep``
+over the mesh of ``devices``, which may name one device several times):
+each replica flattens its own samples' static graphs
+(``ms_forward_batched``) and divides its masked sums by the global batch's
+count; ``predict`` ignores it, as JAX's. Graph-parallel runs of this family
+are not ported yet (ROADMAP.md, Queue A item 6b).
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import pickle
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +55,7 @@ import torch
 from sgnn_tpu_torch.data.loader import load_metadata
 from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
 from sgnn_tpu_torch.data.static_graph_loader import MultiScaleSampleBatcher, MultiScaleTrajectoryLoader
+from sgnn_tpu_torch.parallel.data_parallel import DataParallelStep
 from sgnn_tpu_torch.physics.multi_scale_simulator import (
     MultiScaleSimulator,
     MultiScaleSimulatorConfig,
@@ -61,7 +69,14 @@ from sgnn_tpu_torch.train.captured_train_step import TrainStep
 from sgnn_tpu_torch.train.checkpoint import CheckpointManager, load_optimizer_state, train_state
 from sgnn_tpu_torch.train.config import TrainConfig, load_config
 from sgnn_tpu_torch.train.metrics import MetricLogger
-from sgnn_tpu_torch.train.train import PREFETCH_DEPTH, Training, lr_schedule, make_optimizer
+from sgnn_tpu_torch.train.train import (
+    PREFETCH_DEPTH,
+    Training,
+    check_parallel,
+    lr_schedule,
+    make_optimizer,
+    parallel_mesh,
+)
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 from sgnn_tpu_torch.utils.resource_monitor import ResourceMonitor
 
@@ -89,6 +104,32 @@ def batch_to_device(batch: Dict[str, object], device: torch.device) -> Dict[str,
             for k, v in batch.items()}
 
 
+def make_loss_fn(sim: MultiScaleSimulator, sim_cfg: MultiScaleSimulatorConfig, stats: NormStats,
+                 cfg: TrainConfig) -> Callable:
+    """The loss ``(batch, noise, denom=None) -> (loss, aux)`` of ``sim`` on a
+    batch with its stacked graph: masked sums over ``denom`` (default: the
+    batch's masked count; a data-parallel replica gets the global one)."""
+
+    def loss_fn(batch, noise, denom=None):
+        pred_acc, target_acc, pred_strain = ms_predict_accelerations_batched(
+            sim, sim_cfg, stats, batch["next_position"], noise, batch["positions"], batch["particle_type"],
+            batch["graph"],
+        )
+        mask = batch["node_mask"].to(pred_acc.dtype)  # [B, N]
+        if denom is None:
+            denom = torch.clamp(mask.sum(), min=1.0)
+        loss_pos = ((pred_acc - target_acc) ** 2).sum(dim=-1)
+        loss_strain = (pred_strain - batch["next_strain"]) ** 2
+        loss = cfg.loss_weight_position * loss_pos + cfg.loss_weight_strain * loss_strain
+        aux = {
+            "train/loss-position": (loss_pos * mask).sum() / denom,
+            "train/loss-strain": (loss_strain * mask).sum() / denom,
+        }
+        return (loss * mask).sum() / denom, aux
+
+    return loss_fn
+
+
 def make_train_step(
     sim: MultiScaleSimulator,
     sim_cfg: MultiScaleSimulatorConfig,
@@ -103,23 +144,7 @@ def make_train_step(
     updates before this one (the schedule's argument); ``noise`` replaces
     the draw from ``generator`` (the parity tests inject JAX's). Metrics
     (the JAX step's names) are 0-d tensors left on the device."""
-    def loss_fn(batch, noise):
-        pred_acc, target_acc, pred_strain = ms_predict_accelerations_batched(
-            sim, sim_cfg, stats, batch["next_position"], noise, batch["positions"], batch["particle_type"],
-            batch["graph"],
-        )
-        mask = batch["node_mask"].to(pred_acc.dtype)  # [B, N]
-        denom = torch.clamp(mask.sum(), min=1.0)
-        loss_pos = ((pred_acc - target_acc) ** 2).sum(dim=-1)
-        loss_strain = (pred_strain - batch["next_strain"]) ** 2
-        loss = cfg.loss_weight_position * loss_pos + cfg.loss_weight_strain * loss_strain
-        aux = {
-            "train/loss-position": (loss_pos * mask).sum() / denom,
-            "train/loss-strain": (loss_strain * mask).sum() / denom,
-        }
-        return (loss * mask).sum() / denom, aux
-
-    return TrainStep(loss_fn, optimizer, lr_schedule(cfg), cfg.noise_std, generator)
+    return TrainStep(make_loss_fn(sim, sim_cfg, stats, cfg), optimizer, lr_schedule(cfg), cfg.noise_std, generator)
 
 
 def _dense_row_advantage(cfg: TrainConfig) -> float:
@@ -128,11 +153,16 @@ def _dense_row_advantage(cfg: TrainConfig) -> float:
     return 4.0 if cfg.compute_dtype == "bfloat16" else 2.0
 
 
-def build_training(cfg: TrainConfig, device: torch.device, batch_size: Optional[int] = None) -> Training:
+def build_training(
+    cfg: TrainConfig, device: torch.device, batch_size: Optional[int] = None, devices: Optional[Sequence] = None
+) -> Training:
     """The model from ``cfg.seed``, its optimizer, the training step (noise
-    from a generator seeded from ``cfg.seed``) and the batcher of the
-    training split with its static graphs in the layout ``cfg.ms_dense``
-    picks; ``batch_size`` overrides ``cfg.batch_size``."""
+    from a generator seeded from ``cfg.seed``; data-parallel over the mesh
+    of ``devices`` when the config asks) and the batcher of the training
+    split with its static graphs in the layout ``cfg.ms_dense`` picks;
+    ``batch_size`` overrides ``cfg.batch_size``."""
+    _refuse_graph_parallel(cfg)
+    check_parallel(cfg)
     data_dir = Path(cfg.data_path)
     metadata = load_metadata(data_dir)
     sim_cfg = ms_config_from(cfg, metadata)
@@ -140,14 +170,19 @@ def build_training(cfg: TrainConfig, device: torch.device, batch_size: Optional[
     sim = multi_scale_simulator_init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=device)
     optimizer = make_optimizer(sim, cfg)
     noise_gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    step_fn = make_train_step(sim, sim_cfg, stats, cfg, optimizer, noise_gen)
+    mesh = parallel_mesh(cfg, device, devices)
+    if mesh is not None:
+        step_fn = DataParallelStep(lambda m, d: make_loss_fn(m, sim_cfg, stats.to(d), cfg), sim, mesh, optimizer,
+                                   lr_schedule(cfg), cfg.noise_std, noise_gen)
+    else:
+        step_fn = make_train_step(sim, sim_cfg, stats, cfg, optimizer, noise_gen)
     batcher = MultiScaleSampleBatcher(
         data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size,
         ms_cfg=sim_cfg.graph_config, pad_multiple=cfg.pad_multiple, edge_pad_multiple=cfg.edge_pad_multiple,
         seed=cfg.seed, dense=cfg.ms_dense, dense_row_advantage=_dense_row_advantage(cfg),
         m2m_traversals=cfg.layers,
     )
-    return Training(sim, sim_cfg, stats, optimizer, step_fn, batcher)
+    return Training(sim, sim_cfg, stats, optimizer, step_fn, batcher, mesh)
 
 
 def evaluate_split(sim: MultiScaleSimulator, loader: MultiScaleTrajectoryLoader, rollout: Callable):
@@ -190,10 +225,10 @@ def make_loader(cfg: TrainConfig, sim_cfg: MultiScaleSimulatorConfig, split: str
     )
 
 
-def _refuse_parallel(cfg: TrainConfig) -> None:
-    if cfg.graph_parallel > 1 or cfg.data_parallel > 1:
+def _refuse_graph_parallel(cfg: TrainConfig) -> None:
+    if cfg.graph_parallel > 1:
         raise NotImplementedError(
-            "data_parallel and graph_parallel are not ported yet (ROADMAP.md, Queue A item 6)"
+            "graph_parallel is not ported yet for the multi-scale family (ROADMAP.md, Queue A item 6b)"
         )
 
 
@@ -208,16 +243,18 @@ def _rollout_fn(sim_cfg: MultiScaleSimulatorConfig, stats: NormStats, mode: str,
     return rollout
 
 
-def train(cfg: TrainConfig, device: Device = None) -> dict:
-    """Train on ``device`` (CUDA unless told otherwise); returns
+def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] = None) -> dict:
+    """Train on ``device`` (CUDA unless told otherwise; a data-parallel run
+    over the mesh of ``devices``, whose first is ``device``); returns
     ``{"step", "lowest_eval_loss"}``."""
     dev = resolve_device(device)
-    _refuse_parallel(cfg)
+    _refuse_graph_parallel(cfg)
+    check_parallel(cfg)
     inner = max(1, int(cfg.inner_steps))
     for name in ("log_every", "nsave_steps", "ntraining_steps"):
         if getattr(cfg, name) % inner:
             raise ValueError(f"{name}={getattr(cfg, name)} must be a multiple of inner_steps={inner}")
-    built = build_training(cfg, dev)
+    built = build_training(cfg, dev, devices=devices)
     sim, sim_cfg, stats, optimizer = built.sim, built.sim_cfg, built.stats, built.optimizer
     ckpt_dir = Path(cfg.model_path) / cfg.run_name
     ckpt = CheckpointManager(ckpt_dir)
@@ -243,8 +280,10 @@ def train(cfg: TrainConfig, device: Device = None) -> dict:
         f"dtype={cfg.compute_dtype} steps={cfg.ntraining_steps} device={dev}"
     )
 
+    if cfg.data_parallel > 1:
+        print(f"data-parallel over {cfg.data_parallel} replicas")
     logger = MetricLogger(ckpt_dir, use_wandb=cfg.log, project=cfg.project_name, run_name=cfg.run_name)
-    source = DevicePrefetcher(batcher.epochs(), depth=PREFETCH_DEPTH, device=dev)
+    source = DevicePrefetcher(built.epochs(), depth=PREFETCH_DEPTH, device=dev)
     interrupted = False
     t_last = time.perf_counter()
     try:
@@ -306,7 +345,7 @@ def predict(cfg: TrainConfig, device: Device = None) -> dict:
     """Rollout over valid (mode=valid) or test (mode=rollout) trajectories,
     on ``device`` (CUDA unless told otherwise)."""
     dev = resolve_device(device)
-    _refuse_parallel(cfg)
+    _refuse_graph_parallel(cfg)
     data_dir = Path(cfg.data_path)
     metadata = load_metadata(data_dir)
     sim_cfg = ms_config_from(cfg, metadata)

@@ -698,10 +698,11 @@ def _trainer(family):
     return train_multi_scale if family == "multi_scale" else train
 
 
-def _train_route(cfg, family, device, batches, capture):
-    """Train on ``batches`` from the seeded start: (metrics per step, params,
-    Adam's state, the step)."""
-    built = _trainer(family).build_training(cfg, device)
+def _train_route(cfg, family, device, batches, capture, devices=None):
+    """Train on ``batches`` from the seeded start (over the mesh of
+    ``devices``, for a parallel run): (metrics per step, params, Adam's
+    state, the step)."""
+    built = _trainer(family).build_training(cfg, device, devices=devices)
     built.step_fn.capture = capture
     metrics = [{k: v.clone() for k, v in built.step_fn(b, i).items()} for i, b in enumerate(batches)]
     params = {k: v.clone() for k, v in built.sim.state_dict().items()}
@@ -799,3 +800,119 @@ def test_prefetcher_delivers_the_host_batches_during_a_rollout_capture(cuda):
     for a, b in zip(got, host):
         assert a["x"].is_cuda and torch.equal(a["x"].cpu(), torch.from_numpy(b["x"]))
         assert torch.equal(a["i"].cpu(), torch.from_numpy(b["i"]))
+
+
+# --- parallel runs: shards and replicas on one card --------------------------------
+
+
+def halo_exchange_gradient_check(device):
+    """Two shards of one graph on ``device``: every ext row's gradient
+    reaches the row it came from (its own shard's, or the neighbour's
+    through the exchange's backward), boundary zeros reach nothing."""
+    from sgnn_tpu_torch.parallel.edge_partition import _halo_exchange
+
+    torch.manual_seed(0)
+    halo, n = 3, 8
+    xs = [torch.randn(n, 4, device=device, requires_grad=True) for _ in range(2)]
+    ext = _halo_exchange(xs, halo, [device, device])
+    assert [tuple(e.shape) for e in ext] == [(n + 2 * halo, 4)] * 2
+    assert not ext[0][:halo].any() and not ext[1][-halo:].any()  # boundary shards receive zeros
+    assert torch.equal(ext[0][-halo:], xs[1][:halo]) and torch.equal(ext[1][:halo], xs[0][-halo:])
+    ws = [torch.randn(n + 2 * halo, 4, device=device) for _ in range(2)]
+    sum((w * e).sum() for w, e in zip(ws, ext)).backward()
+    want0 = ws[0][halo : halo + n].clone()
+    want0[-halo:] += ws[1][:halo]
+    want1 = ws[1][halo : halo + n].clone()
+    want1[:halo] += ws[0][-halo:]
+    assert torch.equal(xs[0].grad, want0) and torch.equal(xs[1].grad, want1)
+
+
+def test_halo_exchange_gradient_on_two_shards_of_one_card(cuda):
+    halo_exchange_gradient_check(cuda)
+
+
+def _parallel_batches(trainer, built, device, n):
+    source = built.epochs()
+    return [trainer.batch_to_device(next(source), device) for _ in range(n)]
+
+
+@pytest.mark.parametrize("family,kw", [("single_scale", dict(data_parallel=2)),
+                                       ("multi_scale", dict(data_parallel=2, ms_dense=True)),
+                                       ("single_scale", dict(graph_parallel=2, batch_size=1))],
+                         ids=["dp_A_f32", "dp_dense_f32", "gp_A_f32"])
+def test_parallel_training_captured_equals_eager(cuda, tiny_data, family, kw):
+    """A data-parallel step (2 replicas) and a graph-parallel step (2
+    shards) on one card: one captured graph per step, equal to the eager
+    loop with torch.equal on every parameter, Adam's state and metric."""
+    cfg = _train_config(tiny_data, family, **kw)
+    trainer = _trainer(family)
+    devices = [cuda, cuda]
+    built = trainer.build_training(cfg, cuda, devices=devices)
+    assert built.mesh.one_device and built.step_fn.capturable
+    batches = _parallel_batches(trainer, built, cuda, 5)
+    del built
+    captured = _train_route(cfg, family, cuda, batches, capture=True, devices=devices)
+    eager = _train_route(cfg, family, cuda, batches, capture=False, devices=devices)
+    _assert_same_training(captured, eager)
+    assert captured[3].replays == 4
+
+
+def test_rejected_captured_step_leaves_parameters_and_adam_bit_equal(cuda, tiny_data):
+    """The graph-parallel step captured on one card: a replay whose halo
+    guard fires (a slab's nodes teleported 20 units) leaves every bit of the
+    parameters and of Adam's moments and step counts as they were; the next
+    clean replay updates them."""
+    from sgnn_tpu_torch.train import train
+
+    cfg = _train_config(tiny_data, "single_scale", graph_parallel=2, batch_size=1)
+    built = train.build_training(cfg, cuda, devices=[cuda, cuda])
+    good = _parallel_batches(train, built, cuda, 3)
+    step = built.step_fn
+    step(good[0], 0)  # warm-up and capture
+    step(good[1], 1)  # a replay
+    bad = {k: v.clone() for k, v in good[2].items()}
+    bad["positions"][: built.spec.nodes_per_shard // 2, :, 0] += 20.0
+    before = ({k: v.clone() for k, v in built.sim.state_dict().items()},
+              [{k: v.clone() for k, v in st.items()} for st in built.optimizer.state.values()])
+    m = step(bad, 2)
+    assert int(m["train/halo_violations"]) > 0 and int(m["train/halo_rejected"]) == 1
+    assert all(torch.equal(v, before[0][k]) for k, v in built.sim.state_dict().items())
+    for st, old in zip(built.optimizer.state.values(), before[1]):
+        assert all(torch.equal(st[k], old[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+    m = step(good[2], 3)
+    assert int(m["train/halo_rejected"]) == 0 and step.replays == 3
+    assert any(not torch.equal(v, before[0][k]) for k, v in built.sim.state_dict().items())
+    step.close()
+
+
+@pytest.mark.parametrize("family,kw", [("single_scale", dict(data_parallel=2)),
+                                       ("multi_scale", dict(data_parallel=2, ms_dense=True)),
+                                       ("single_scale", dict(graph_parallel=2, batch_size=1))],
+                         ids=["dp_A_f32", "dp_dense_f32", "gp_A_f32"])
+def test_parallel_training_on_two_cards_equals_one_card(cuda, tiny_data, family, kw):
+    """The same parallel run with its second replica or shard on a second
+    card (a copy of the model there, its gradients folded onto the first
+    card's; the step runs eagerly) equals the run with both on one card,
+    bit for bit. Skips with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    cfg = _train_config(tiny_data, family, **kw)
+    trainer = _trainer(family)
+    one, two = [torch.device("cuda", 0)] * 2, [torch.device("cuda", 0), torch.device("cuda", 1)]
+    built = trainer.build_training(cfg, one[0], devices=two)
+    assert not built.mesh.one_device and not built.step_fn.capturable and len(built.step_fn.replicas.copies) == 1
+    batches = _parallel_batches(trainer, built, one[0], 4)
+    del built
+    _assert_same_training(_train_route(cfg, family, one[0], batches, capture=True, devices=two),
+                          _train_route(cfg, family, one[0], batches, capture=True, devices=one))
+
+
+def test_two_process_nccl_dp_step_matches_one_process(cuda, tmp_path):
+    """The multihost test on the cards: two processes in an NCCL group, one
+    card each, end bit-equal and within 1e-6 of one process's
+    ``data_parallel: 2`` step. Skips with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from test_torch_port_multihost import two_process_check
+
+    two_process_check(tmp_path, device="cuda")

@@ -78,6 +78,28 @@ def test_ms_train_needs_cuda_without_a_device(no_cuda):
         ttms.main(["--config", str(REPO / "configs" / "taylor2d_multi_scale.yaml"), "--mode", "train"])
 
 
+def test_parallel_entry_points_need_cuda_without_a_device(no_cuda):
+    """A mesh takes CUDA devices unless it is given a list; the trainers'
+    parallel runs and a process group on the default device need CUDA."""
+    from sgnn_tpu_torch.parallel import make_mesh, multihost
+    from sgnn_tpu_torch.train import train_multi_scale as ttms
+
+    with pytest.raises(ValueError, match="need 2 CUDA devices, have 0"):
+        make_mesh(data=2)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        make_mesh(graph=2)
+    assert make_mesh(graph=2, devices=["cpu", "cpu"]).one_device
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multihost.initialize("tcp://localhost:1", world_size=1, rank=0)
+    for kw in (dict(data_parallel=2), dict(graph_parallel=2, batch_size=1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ttrain.train(TrainConfig(**kw))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ttrain.predict(TrainConfig(mode="rollout", model_file="model-best-000000", **kw))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttms.train(TrainConfig(data_parallel=2))
+
+
 def test_probe_needs_cuda_without_a_device(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tprobe.main([])
@@ -87,7 +109,9 @@ def test_the_walk_reaches_every_new_module():
     names = {str(p.relative_to(REPO)) for p in SOURCES}
     assert {"sgnn_tpu_torch/scripts/gather_kernel_probe.py", "sgnn_tpu_torch/ops/row_gather.py",
             "sgnn_tpu_torch/models/multi_scale.py", "sgnn_tpu_torch/train/train_multi_scale.py",
-            "sgnn_tpu_torch/data/static_graph_loader.py", "sgnn_tpu_torch/physics/multi_scale_simulator.py"} <= names
+            "sgnn_tpu_torch/data/static_graph_loader.py", "sgnn_tpu_torch/physics/multi_scale_simulator.py",
+            "sgnn_tpu_torch/parallel/mesh.py", "sgnn_tpu_torch/parallel/multihost.py",
+            "sgnn_tpu_torch/parallel/data_parallel.py", "sgnn_tpu_torch/parallel/edge_partition.py"} <= names
 
 
 def test_resolve_device_passes_explicit_choices():

@@ -442,13 +442,14 @@ def test_inference_cli_runs_predict(tiny_data, tmp_path):
 
 
 def test_train_mode_is_refused(tiny_data, tmp_path):
-    """Training runs (tests/test_torch_port_ms_train.py); data-parallel and
-    graph-parallel training and prediction are refused."""
-    for kw in (dict(data_parallel=2), dict(graph_parallel=2, batch_size=1)):
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            ttms.train(tiny_config(tiny_data, mode="train", run_name="refused", **kw), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            ttms.predict(tiny_config(tiny_data, **kw), device="cpu")
+    """Training runs (tests/test_torch_port_ms_train.py), data-parallel too
+    (tests/test_torch_port_dp.py); graph-parallel training and prediction
+    of this family are refused."""
+    kw = dict(graph_parallel=2, batch_size=1)
+    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+        ttms.train(tiny_config(tiny_data, mode="train", run_name="refused", **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+        ttms.predict(tiny_config(tiny_data, **kw), device="cpu")
 
 
 @pytest.fixture
