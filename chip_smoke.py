@@ -111,8 +111,18 @@ each of which raises on failure:
      symmetric gather) with ``graph_parallel: 2`` on a second bar of 28,796
      particles (the sharded symmetric route: 14,400 local rows) through
      ``train`` for 3 steps, its first step against one device (GP_SYM_TOL),
-     captured against eager. Launch counters are set to 0 before each
-     route; one ``parallel {...}`` JSON line.
+     captured against eager; the multi-scale model (taylor2d_multi_scale.
+     yaml's values) with ``graph_parallel: 2``, batch 1, dense f32 and COO
+     f32, through ``train`` for 20 steps validating at 10 and 20 through
+     the partitioned host rollout, each kernel launched as the plan asks,
+     the first step against the one-device step on the same x-sorted
+     layout (GP_MS_TOL: the loss, every parameter after Adam, the
+     forward), captured against eager, the partitioned rollout of the
+     validation trajectory against the one-device captured rollout on the
+     same layout (GP_MS_ROLLOUT_TOL) and its captured route against its
+     eager one (torch.equal), the plan's slab, halo and per-type sizes;
+     dense bf16: one step against one device (GP_MS_TOL). Launch counters
+     are set to 0 before each route; one ``parallel {...}`` JSON line.
 
 The last lines are the training routes of 5 and 10 (one ``train routes
 {...}`` JSON line), the rollout routes of 6 and 9 (one ``routes {...}``
@@ -247,6 +257,27 @@ GP_SYM_BF16_TOL = dict(loss_rtol=STEP_TOL["B"]["loss_rtol"], grad_rtol=STEP_TOL[
                        grad_atol_rel=STEP_TOL["B"]["grad_rel"])
 GP_ROLLOUT_TOL = {"predicted_rollout": (1e-3, 2e-4), "predicted_strain": (1e-3, 1e-5),
                   "rmse_position": (1e-3, 1e-5)}
+# the multi-scale graph partition against one device, tests/test_ms_partition.py's
+# tolerances: the first step's loss (:169-170, rtol 2e-4) and parameters after
+# Adam (COO :171, rtol 5e-3 atol 1e-5; dense :432-433, rtol 2e-4 atol 1e-6),
+# the forward (:95-100, rtol 2e-4 atol 2e-5; bf16 :313-318, rtol 0.05 atol
+# 0.02), the rollout (:276-285): (rtol, atol). The parameters after Adam
+# are held to their limit with what Adam's first step makes of the two
+# gradients added (``adam_step_report``): at full width some gradients lie
+# near Adam's eps, where their last bits move the update by a share of lr
+# (dense f32 on the H100: an entry 1.18e-5 apart, over the bare 1e-6 +
+# 2e-4 |p|, its gradients -1.31e-9 and -1.46e-9). The gradients take
+# STEP_TOL's rule for sums in another order at this width (``compare_steps``):
+# in the COO step one entry of the prediction head's first weight lies 4.1e-5
+# apart (of the tensor's 0.457), a discrete gap such as a ReLU gate within
+# rounding of 0 at one node gives
+GP_MS_TOL = {
+    "dense_f32": dict(loss_rtol=2e-4, param=(2e-4, 1e-6), forward=(2e-4, 2e-5), grad_rel=STEP_TOL["MS_f32"]["grad_rel"]),
+    "coo_f32": dict(loss_rtol=2e-4, param=(5e-3, 1e-5), forward=(2e-4, 2e-5), grad_rel=STEP_TOL["MS_f32"]["grad_rel"]),
+    "dense_bf16": dict(loss_rtol=0.05, param=(0.05, 0.02), forward=(0.05, 0.02),
+                       grad_rel=STEP_TOL["MS_bf16"]["grad_rel"]),
+}
+GP_MS_ROLLOUT_TOL = {"predicted_rollout": (1e-3, 2e-4), "rmse_position_per_step": (1e-3, 1e-5)}
 # the symmetric sharded route runs at >= 12,288 local rows
 # (edge_partition._SYM_MIN_LOCAL_ROWS): a second bar of 28,796 particles, 2
 # shards of 14,400 rows; 20 frames per run (60 raw steps, 40 kept)
@@ -2422,6 +2453,310 @@ def gp_sym_route(root: Path, card, smi: str):
                 first_step_f32_vs_one_device=first_f32, routes=routes, nvidia_smi=smi)
 
 
+def gp_ms_blocks(graph) -> int:
+    """Interaction blocks of one partitioned forward over ``graph``'s layout
+    (the dense layout's m2m blocks run per scale)."""
+    from sgnn_tpu_torch.parallel.ms_partition import ShardedDenseMSGraph
+
+    per_layer = len(graph.m2m) if isinstance(graph, ShardedDenseMSGraph) else 1
+    return 2 + MS_MODEL["layers"] * per_layer
+
+
+def gp_ms_plan_sizes(built) -> dict:
+    """The plan's slab, halo and per-type sizes (COO: edge slots per shard;
+    dense: receiver rows, slots, plan rows and plan slots per shard)."""
+    from sgnn_tpu_torch.parallel.ms_partition import ShardedDenseMSGraph
+
+    spec, graph = built.spec, built.graphs[0]
+    out = dict(num_shards=spec.num_shards, nodes_per_shard=spec.nodes_per_shard, halo=spec.halo,
+               trajectories=len(built.graphs))
+    if isinstance(graph, ShardedDenseMSGraph):
+        def sizes(de):
+            return [int(de.recv.shape[1]), int(de.senders.shape[2]), int(de.tsp_node.shape[1]),
+                    int(de.tsp_rows.shape[2])]
+
+        out["dense_rows_slots_plan_rows_plan_slots"] = dict(g2m=sizes(graph.g2m), m2m=[sizes(d) for d in graph.m2m],
+                                                           m2g=sizes(graph.m2g))
+    else:
+        out["coo_edge_slots_per_shard"] = {k: int(getattr(graph, k).senders.shape[1]) for k in ("g2m", "m2m", "m2g")}
+    return out
+
+
+def sorted_ms_graph(graph_cfg, frame, dense: bool):
+    """The one-device static graph of ``frame`` (already x-sorted) at its
+    exact sizes: what the partitioned run's plan holds, on one device."""
+    from sgnn_tpu_torch.physics import multi_scale_graph as mg
+
+    if dense:
+        n = len(frame)
+        return mg.build_dense_static_graph(graph_cfg, frame, g2m_rows=n, m2m_rows=n, m2g_rows=n)
+    edges = mg.create_all_edges(graph_cfg, frame)
+    return mg.StaticGraph(*(mg.pad_edges(edges[k], len(edges[k].senders))
+                            for k in ("grid2mesh_edges", "mesh2mesh_edges", "mesh2grid_edges")))
+
+
+def gp_ms_first_step(where, cfg, card, tol):
+    """The first step of a graph-parallel multi-scale run against the
+    one-device step on the same x-sorted sample (its real nodes), graph and
+    noise: the loss and the parameters after Adam to ``tol`` (numpy's
+    allclose rule, every parameter), the gradients reported; and the
+    forward of the sample, partitioned against one device. Returns the
+    worst ratios of error to limit and the plan's sizes."""
+    import torch
+
+    from sgnn_tpu_torch.data.prefetch import tree_map
+    from sgnn_tpu_torch.parallel.ms_partition import ShardedDenseMSGraph, make_ms_partitioned_forward
+    from sgnn_tpu_torch.physics.multi_scale_simulator import _forward, graph_to
+    from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+
+    built = tms.build_training(cfg, card, devices=[card, card])
+    plan = gp_ms_plan_sizes(built)
+    dense = isinstance(built.graphs[0], ShardedDenseMSGraph)
+    host = next(built.batcher.epochs())
+    ti = int(host["traj_idx"][0])
+    order = built.orders[ti]
+    n = len(order)
+    frame = built.batcher.trajectories[ti][0][0][order]
+    batch = tms.batch_to_device({**tms.ms_partition_sample(host, built.spec, order), "graph": built.graphs[ti]},
+                                card)
+    noise = random_walk_position_noise(tuple(batch["positions"].shape), cfg.noise_std,
+                                       generator=torch.Generator(device=card).manual_seed(2), device=card)
+    with torch.no_grad():
+        fwd = make_ms_partitioned_forward(built.mesh, built.sim_cfg, built.stats, built.spec)(
+            built.sim, batch["positions"], batch["particle_type"], batch["graph"])
+    before = _launch_counts()
+    gp = step_outputs(built, batch, noise)
+    step_launches = {k: v - before[k] for k, v in _launch_counts().items() if k in ("take", "sorted", "planned")}
+    blocks, shards = gp_ms_blocks(built.graphs[0]), built.spec.num_shards
+    # per shard and block, as one device's step (see run_ms_train)
+    expect = dict(take=shards * (3 if dense else 4) * blocks, sorted=shards * (2 if dense else 3) * blocks,
+                  planned=shards * blocks if dense else 0)
+    if step_launches != expect:
+        raise AssertionError(f"{where}: the partitioned step launched {step_launches}, expected {expect}")
+    del built
+    torch.cuda.empty_cache()
+    single_cfg = dataclasses.replace(cfg, graph_parallel=1, ms_dense=dense, run_name=cfg.run_name + "_single")
+    one_built = tms.build_training(single_cfg, card, batch_size=1)
+    one_batch = {k: v[None, :n] for k, v in batch.items() if k != "graph"}
+    one_batch["graph"] = graph_to(tree_map(lambda a: a[None], sorted_ms_graph(one_built.sim_cfg.graph_config,
+                                                                               frame, dense)), card)
+    with torch.no_grad():
+        flat = graph_to(sorted_ms_graph(one_built.sim_cfg.graph_config, frame, dense), card)
+        one_fwd = _forward(one_built.sim, one_built.sim_cfg, one_built.stats, batch["positions"][:n],
+                           batch["particle_type"][:n], flat)
+    one = step_outputs(one_built, one_batch, noise[None, :n])
+    del one_built
+    rtol, atol = tol["param"]
+    fwd_worst = allclose_report(f"{where} forward", {"acc": fwd[0][:n], "strain": fwd[1][:n]},
+                                {"acc": one_fwd[0], "strain": one_fwd[1]}, *tol["forward"])
+    loss_rel = {k: abs(v - one["metrics"][k]) / abs(one["metrics"][k]) for k, v in gp["metrics"].items()}
+    if max(loss_rel.values()) > tol["loss_rtol"]:
+        raise AssertionError(f"{where}: metrics {gp['metrics']} vs {one['metrics']}")
+    grad_worst, grad_at = 0.0, None
+    for k, g in one["grads"].items():  # compare_steps' gradient rule
+        err = (gp["grads"][k] - g).abs()
+        limit = tol["grad_rel"] * (float(g.abs().max()) + g.abs())
+        if float((err / limit).max()) > grad_worst:
+            grad_worst = float((err / limit).max())
+            grad_at = dict(param=k, max_err=float(err.max()), scale=float(g.abs().max()))
+        if (err > limit).any():
+            raise AssertionError(f"{where}: gradient {k} max |err| {float(err.max()):.3e}")
+    adam = adam_step_report(f"{where} parameters after Adam", gp, one, rtol, atol, cfg.lr_init + 1e-6)
+    return dict(plan=plan, layout="dense" if dense else "coo", nodes=n, step_launches=step_launches,
+                metrics_rel=loss_rel, grad_err_over_limit=grad_worst, grad_worst=grad_at, params_after_adam=adam,
+                forward_err_over_limit=fwd_worst, tol=tol)
+
+
+def adam_step_report(where, got, want, rtol, atol, lr):
+    """The parameters after Adam's first step of two runs whose gradients
+    agree to (rtol, atol): each entry within atol + rtol |p| plus what Adam
+    makes of the two gradients. Its first step moves an entry by lr * g /
+    (|g| + eps), which two gradients g1, g2 of one sign move apart by at
+    most lr * |g1 - g2| / max(|g1|, |g2|) (and by up to 2 lr where their
+    signs differ): near Adam's eps (1e-8) a gradient's rounding in the
+    last bits becomes a share of lr (``compare_steps``' rule, its update
+    rounding 1e-5 lr). Also reports the bare (rtol, atol) ratio and the
+    gradients at its worst entry."""
+    import torch
+
+    worst, bare, at = 0.0, 0.0, None
+    for k, p_want in want["params"].items():
+        g1, g2 = got["grads"][k], want["grads"][k]
+        apart = torch.where(g1 * g2 < 0, 2.0,
+                            torch.clamp((g1 - g2).abs() / torch.maximum(g1.abs(), g2.abs()).clamp(min=1e-30), max=2.0))
+        err = (got["params"][k] - p_want).abs().double()
+        plain = atol + rtol * p_want.abs().double()
+        allowed = plain + lr * (1e-5 + apart.double())
+        worst = max(worst, float((err / allowed).max()))
+        ratio = err / plain
+        if float(ratio.max()) > bare:
+            i = int(ratio.argmax())
+            bare = float(ratio.max())
+            at = dict(param=k, err=float(err.reshape(-1)[i]), grad=float(g2.reshape(-1)[i]),
+                      grad_other=float(g1.reshape(-1)[i]))
+        if (err > allowed).any():
+            raise AssertionError(f"{where}: {k} max |err| {float(err.max()):.3e} over the limit")
+    return dict(err_over_limit=worst, bare_err_over_limit=bare, bare_worst=at)
+
+
+def gp_ms_rollout_check(where, cfg, run_dir, card):
+    """The partitioned host rollout of the validation trajectory (COO, from
+    the run's checkpoint) against the one-device captured rollout on the
+    same sorted layout over the whole trajectory (GP_MS_ROLLOUT_TOL); the
+    partitioned rollout's captured route against its eager one
+    (torch.equal), each timed."""
+    import numpy as np
+    import torch
+
+    from sgnn_tpu_torch.data.loader import load_metadata
+    from sgnn_tpu_torch.parallel.mesh import make_mesh
+    from sgnn_tpu_torch.parallel.ms_partition import make_ms_partitioned_rollout, plan_ms_partition
+    from sgnn_tpu_torch.physics.multi_scale_simulator import ms_rollout, multi_scale_simulator_init
+    from sgnn_tpu_torch.physics.simulator import make_norm_stats
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+    from sgnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    meta = json.loads((run_dir / "checkpoint_meta.json").read_text())
+    metadata = load_metadata(Path(cfg.data_path))
+    sim_cfg = tms.ms_config_from(cfg, metadata)
+    stats = make_norm_stats(metadata, cfg.noise_std, device=card)
+    sim = multi_scale_simulator_init(sim_cfg, device=card)
+    state, _ = CheckpointManager(run_dir).restore(meta["path"], map_location=card)
+    sim.load_state_dict(state["params"], strict=True)
+    built = tms.build_training(cfg, card, devices=[card, card])
+    spec, mesh = built.spec, built.mesh
+    del built
+    loader = tms.make_loader(cfg, sim_cfg, "valid")
+    traj = next(iter(loader))
+    m = np.asarray(traj["node_mask"], bool)
+    idx = np.nonzero(m)[0]
+    host = tms.make_ms_partitioned_host_rollout(mesh, sim_cfg, stats, spec, cfg.inference_mode,
+                                                frames=[p[0] for p, _, _ in loader.trajectories])
+    gp = host(sim, traj["positions"], traj["particle_type"], traj["strains"], traj["node_mask"], None)
+    _, order_rel, sgraph = plan_ms_partition(sim_cfg.graph_config, traj["positions"][idx, 0], spec.num_shards,
+                                             nodes_per_shard=spec.nodes_per_shard, halo=spec.halo)
+    order = idx[order_rel]
+    frame = traj["positions"][order, 0]
+    one = ms_rollout(sim, sim_cfg, stats, traj["positions"][order], traj["particle_type"][order],
+                     traj["strains"][:, order], sorted_ms_graph(sim_cfg.graph_config, frame, False), device=card)
+    worst = {}
+    for key, (rtol, atol) in GP_MS_ROLLOUT_TOL.items():
+        a, b = gp[key], one[key]
+        if key != "rmse_position_per_step":
+            a = a[:, torch.as_tensor(order, device=card)]
+        worst[key] = allclose_report(f"{where} rollout", {key: a}, {key: b}, rtol, atol)
+    # the partitioned rollout's two routes on the sorted layout, timed
+    nt, k = spec.total_nodes, len(order)
+    pos = np.zeros((nt, *traj["positions"].shape[1:]), np.float32)
+    pos[:k] = traj["positions"][order]
+    strains = np.zeros((traj["strains"].shape[0], nt), np.float32)
+    strains[:, :k] = traj["strains"][:, order]
+    types = np.zeros(nt, np.int32)
+    types[:k] = traj["particle_type"][order]
+    args = (pos, types, strains, np.arange(nt) < k, sgraph)
+    run = make_ms_partitioned_rollout(make_mesh(graph=spec.num_shards, devices=[card, card]), sim_cfg, stats, spec,
+                                      inference_mode=cfg.inference_mode)
+    steps = pos.shape[1] - cfg.input_sequence_length
+    timed = {}
+    for name, capture in (("captured", True), ("eager", False), ("captured_warm", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(sim, *args, capture=capture)
+        torch.cuda.synchronize()
+        timed[name] = dict(ms_per_step=(time.perf_counter() - t0) * 1e3 / steps, out=out)
+    if not all(torch.equal(timed["captured"]["out"][key], timed["eager"]["out"][key])
+               for key in ("predicted_rollout", "predicted_strain")):
+        raise AssertionError(f"{where}: the captured partitioned rollout differs from its eager one")
+    return dict(steps=steps, worst_err_over_limit=worst, tol=GP_MS_ROLLOUT_TOL,
+                reference="the one-device captured rollout (COO) on the plan's x-sorted layout",
+                routes=dict(check="torch.equal: predicted positions and strains, captured vs eager",
+                            wall_ms_per_step={name: t["ms_per_step"] for name, t in timed.items()}))
+
+
+def gp_ms_route(root: Path, data: Path, name: str, card, smi: str):
+    """The multi-scale model (taylor2d_multi_scale.yaml's values) with
+    ``graph_parallel: 2``, batch 1, in the layout of ``name`` (dense_f32:
+    ``ms_dense: True``; coo_f32: False) on [card, card]: ``train`` for
+    TRAIN_STEPS steps validating at 10 and 20 through the partitioned host
+    rollout, its launches against the counts the plan asks; the first step
+    against one device (GP_MS_TOL); captured against eager
+    (``training_routes``; COO: the eager step twice); the partitioned
+    rollout against the one-device rollout (``gp_ms_rollout_check``)."""
+    import torch
+
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+
+    dense = name.startswith("dense")
+    devices, shards = [card, card], 2
+    cfg = ms_train_config(root, data, name, run_name=f"smoke_gp_ms_{name}", graph_parallel=shards, batch_size=1,
+                          ms_dense=dense, ntraining_steps=TRAIN_STEPS, nsave_steps=SAVE_EVERY, log_every=LOG_EVERY)
+    built = tms.build_training(cfg, card, devices=devices)
+    blocks = gp_ms_blocks(built.graphs[0])
+    del built
+    valid = tms.make_loader(cfg, tms.ms_config_from(cfg, tms.load_metadata(data)), "valid")
+    val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
+    rollout_steps = val_steps * (TRAIN_STEPS // SAVE_EVERY)
+    val_blocks = 2 + MS_MODEL["layers"]  # the validation plans COO
+    torch.cuda.synchronize()
+    reset_gather_launches()
+    reset_bwd_gather_launches()
+    t0 = time.perf_counter()
+    result = tms.train(cfg, device=card, devices=devices)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = dict(rg.LAUNCHES, **{f"bwd_{k}": v for k, v in rg.BWD_LAUNCHES.items()})
+    # per shard, training step and block as on one device (see run_ms_train);
+    # per shard, validation rollout step and block: two gathers, one sum
+    expect = {v: 0 for v in rg.VARIANTS}
+    expect[rg.MODEL_VARIANT] = shards * ((3 if dense else 4) * blocks * TRAIN_STEPS + 2 * val_blocks * rollout_steps)
+    expect.update(bwd_sorted=shards * ((2 if dense else 3) * blocks * TRAIN_STEPS + val_blocks * rollout_steps),
+                  bwd_planned=shards * blocks * TRAIN_STEPS if dense else 0)
+    if got != expect or result["step"] != TRAIN_STEPS or not math.isfinite(result["lowest_eval_loss"]):
+        raise AssertionError(f"gp ms {name}: launches {got}, expected {expect}; {result}")
+    run_dir = Path(cfg.model_path) / cfg.run_name
+    records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_rec = [r for r in records if "train/loss" in r]
+    val_rec = [r for r in records if "val/loss" in r]
+    if len(train_rec) != TRAIN_STEPS // LOG_EVERY or len(val_rec) != TRAIN_STEPS // SAVE_EVERY or not all(
+            math.isfinite(v) for r in records for v in r.values()):
+        raise AssertionError(f"gp ms {name}: metrics {records}")
+    first = gp_ms_first_step(f"gp ms {name} vs one device", cfg, card, GP_MS_TOL[name])
+    torch.cuda.empty_cache()
+    log(f"gp ms {name}: first step vs one device {json.dumps(first)}")
+    routes = training_routes(f"gp ms {name}", cfg, card, tms, repeat_eager=not dense, devices=devices)
+    torch.cuda.empty_cache()
+    rollout = gp_ms_rollout_check(f"gp ms {name}", cfg, run_dir, card)
+    log(f"gp ms {name} rollout: {json.dumps(rollout)}")
+    return dict(run=name, graph_parallel=shards, batch_size=1, blocks=blocks, validation_blocks=val_blocks,
+                validation_rollout_steps=rollout_steps, launches=got, expected_launches=expect,
+                launches_per_step=routes["captured"]["launches_per_step"], wall_s=wall_s,
+                ms_per_step_last_log=train_rec[-1]["train/step_time_s"] * 1e3,
+                train_loss=[r["train/loss"] for r in train_rec], val_loss=[r["val/loss"] for r in val_rec],
+                first_step_vs_one_device=first, routes=routes, rollout=rollout, nvidia_smi=smi)
+
+
+def gp_ms_bf16_route(root: Path, data: Path, card, smi: str):
+    """The multi-scale model, dense bf16, ``graph_parallel: 2``: one step
+    (eager, injected noise) against the one-device step within
+    GP_MS_TOL["dense_bf16"], the forward too; its launches."""
+    import torch
+
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+
+    cfg = ms_train_config(root, data, "dense_bf16", run_name="smoke_gp_ms_dense_bf16", graph_parallel=2,
+                          batch_size=1, ms_dense=True)
+    torch.cuda.synchronize()
+    reset_gather_launches()
+    reset_bwd_gather_launches()
+    first = gp_ms_first_step("gp ms dense_bf16 vs one device", cfg, card, GP_MS_TOL["dense_bf16"])
+    log(f"gp ms dense_bf16: first step vs one device {json.dumps(first)}")
+    return dict(run="dense_bf16", graph_parallel=2, first_step_vs_one_device=first,
+                launches_per_step=first["step_launches"], nvidia_smi=smi)
+
+
 def free_port() -> int:
     import socket
 
@@ -2435,6 +2770,8 @@ def add_parallel_launches(kernels, par) -> None:
     ``launches_by_path`` (the multi-scale DP route's per captured step)."""
     dp, gp, sym = par["dp_A"], par["gp_A"], par["gp_B_sym"]
     ms = par["dp_ms_dense_f32"]["launches_per_step"]
+    gd, gc = par["gp_ms_dense_f32"], par["gp_ms_coo_f32"]
+    gb = par["gp_ms_dense_bf16"]["launches_per_step"]
     paths = {
         ("edge_block_fwd", "float32"): {"dp_train_A": dp["launches"]["fwd"], "gp_train_A": gp["launches"]["fwd"],
                                         "gp_predict_A": gp["predict"]["fwd_launches"]},
@@ -2442,11 +2779,24 @@ def add_parallel_launches(kernels, par) -> None:
         ("edge_block_bwd", "float32"): {"dp_train_A": dp["launches"]["bwd"], "gp_train_A": gp["launches"]["bwd"]},
         ("edge_block_bwd", "bfloat16"): {"gp_train_B_sym": sym["launches"]["bwd"]},
         ("row_gather_take", None): {"dp_train_A": dp["launches"]["take"], "gp_train_A": gp["launches"]["take"],
-                                    "dp_ms_dense_f32_per_step": ms["take"]},
+                                    "dp_ms_dense_f32_per_step": ms["take"],
+                                    "gp_train_ms_dense_f32": gd["launches"]["take"],
+                                    "gp_train_ms_coo_f32": gc["launches"]["take"],
+                                    "gp_ms_dense_f32_per_step": gd["launches_per_step"]["take"],
+                                    "gp_ms_coo_f32_per_step": gc["launches_per_step"]["take"],
+                                    "gp_ms_dense_bf16_per_step": gb["take"]},
         ("sorted_segment_sum", None): {"dp_train_A": dp["launches"]["sorted"],
                                        "gp_train_A": gp["launches"]["sorted"],
-                                       "dp_ms_dense_f32_per_step": ms["sorted"]},
-        ("planned_gather_bwd", None): {"dp_ms_dense_f32_per_step": ms["planned"]},
+                                       "dp_ms_dense_f32_per_step": ms["sorted"],
+                                       "gp_train_ms_dense_f32": gd["launches"]["bwd_sorted"],
+                                       "gp_train_ms_coo_f32": gc["launches"]["bwd_sorted"],
+                                       "gp_ms_dense_f32_per_step": gd["launches_per_step"]["sorted"],
+                                       "gp_ms_coo_f32_per_step": gc["launches_per_step"]["sorted"],
+                                       "gp_ms_dense_bf16_per_step": gb["sorted"]},
+        ("planned_gather_bwd", None): {"dp_ms_dense_f32_per_step": ms["planned"],
+                                       "gp_train_ms_dense_f32": gd["launches"]["bwd_planned"],
+                                       "gp_ms_dense_f32_per_step": gd["launches_per_step"]["planned"],
+                                       "gp_ms_dense_bf16_per_step": gb["planned"]},
     }
     for entry in kernels:
         for key in ((entry["name"], entry.get("dtype")), (entry["name"], None)):
@@ -2462,12 +2812,16 @@ def phase_parallel(root: Path, data: Path, card, smi: str):
     for name, fn in (("dp_A", lambda: dp_a_route(root, data, card, smi)),
                      ("dp_ms_dense_f32", lambda: dp_ms_route(root, data, card, smi)),
                      ("gp_A", lambda: gp_a_route(root, data, card, smi)),
-                     ("gp_B_sym", lambda: gp_sym_route(root, card, smi))):
+                     ("gp_B_sym", lambda: gp_sym_route(root, card, smi)),
+                     ("gp_ms_dense_f32", lambda: gp_ms_route(root, data, "dense_f32", card, smi)),
+                     ("gp_ms_coo_f32", lambda: gp_ms_route(root, data, "coo_f32", card, smi)),
+                     ("gp_ms_dense_bf16", lambda: gp_ms_bf16_route(root, data, card, smi))):
         t0 = time.perf_counter()
         out[name] = fn()
         out[name]["seconds"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
-    busy = {n: {r: out[n]["routes"][r].get("device_ms_per_step") for r in ("captured", "eager")} for n in out}
+    busy = {n: {r: out[n]["routes"][r].get("device_ms_per_step") for r in ("captured", "eager")} for n in out
+            if "routes" in out[n]}
     line = dict(design="one process drives a mesh of torch.devices; cuda:0 named twice: 2 replicas / 2 shards on the "
                        "one card, exchanges and reductions real, one CUDA graph per step",
                 busy_ms_per_step=busy, routes=out, nvidia_smi=smi)

@@ -132,21 +132,25 @@ def _agg_weight(block: InteractionNetwork, d: int) -> torch.Tensor:
 
 
 def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges, sorted_senders: torch.Tensor,
-              compute_dtype=None):
+              compute_dtype=None, *, x_sender_table: Optional[torch.Tensor] = None):
     """One interaction step over flattened padded COO edges (``PaddedEdges``
     of tensors, ``flatten_ms_graph``'s contract: receivers non-decreasing,
     padding included; ``sorted_senders = senders[order]``): padded slots
     (mask False) add nothing to the aggregation and their latents stay
-    zero. Returns (new x [N, D], new e [E, D])."""
+    zero. ``x_sender_table`` is the table the senders index (default x):
+    the graph partition's halo-extended latents ``[N_ext, D]``
+    (``parallel/ms_partition.py``); receivers stay on x. Returns (new x
+    [N, D], new e [E, D])."""
     d, n = x.shape[-1], x.shape[0]
+    xs = x if x_sender_table is None else x_sender_table
     dt = e.dtype if compute_dtype is None else compute_dtype
     maskf = edges.mask[:, None].to(dt)
     w_i, w_j, w_e, b_e = _edge_mlp_in(block, d, dt)
     proj_i = x @ w_i  # [N, H]
-    proj_j = x @ w_j
+    proj_j = xs @ w_j  # [N_ext, H]
     if compute_dtype is not None:
         proj_j = proj_j.to(dt)
-    xj = ordered_gather(proj_j, edges.senders, edges.order, sorted_senders, n)
+    xj = ordered_gather(proj_j, edges.senders, edges.order, sorted_senders, xs.shape[0])
     h = sorted_gather(proj_i, edges.receivers, n).to(dt) + xj + e @ w_e + b_e
     msg = _edge_msg(block, h, maskf)
     agg = sorted_sum(msg.float(), edges.receivers, n)  # f32 accumulation
@@ -184,6 +188,8 @@ def _interact_dense_scales(
     es: Sequence[torch.Tensor],  # per edge set: [R_s, K_s, D]
     des: Sequence,  # DenseEdges of tensors, disjoint edge sets over the same nodes
     compute_dtype=None,
+    *,
+    x_sender_table: Optional[torch.Tensor] = None,
 ):
     """One interaction step over a union of dense edge sets (one per m2m
     scale; a single set is ``_interact_dense``). The edge update runs per
@@ -191,13 +197,15 @@ def _interact_dense_scales(
     the node MLP's aggregate block (f32 products of the edge dtype's
     values, summed in f32) and ONE sorted sum over the ascending receiver
     rows writes it back to the full grid; the node update runs once on the
-    sum over the sets.
+    sum over the sets. ``x_sender_table``: the table the senders and the
+    transpose plans index, as in ``_interact``.
     Returns (new x [N, D], new edge latents per set)."""
     d, n = x.shape[-1], x.shape[0]
+    xs = x if x_sender_table is None else x_sender_table
     dt = es[0].dtype if compute_dtype is None else compute_dtype
     w_i, w_j, w_e, b_e = _edge_mlp_in(block, d, dt)
     proj_i_full = x @ w_i  # [N, H]
-    proj_j = x @ w_j
+    proj_j = xs @ w_j  # [N_ext, H]
     if compute_dtype is not None:
         proj_j = proj_j.to(dt)
     w_agg = _agg_weight(block, d).to(dt).float()
@@ -206,7 +214,7 @@ def _interact_dense_scales(
     for e, de in zip(es, des):
         maskf = de.mask[..., None].to(dt)
         proj_i = sorted_gather(proj_i_full, de.recv, n)  # [R, H]
-        xj = planned_gather(proj_j, de.senders, de.tsp_rows, de.tsp_node, de.tsp_mask, n)  # [R, K, H]
+        xj = planned_gather(proj_j, de.senders, de.tsp_rows, de.tsp_node, de.tsp_mask, xs.shape[0])  # [R, K, H]
         h = proj_i.to(dt)[:, None, :] + xj + e @ w_e + b_e
         msg = _edge_msg(block, h, maskf)
         new_es.append((e + msg) * maskf)
@@ -215,9 +223,10 @@ def _interact_dense_scales(
     return _node_update(block, x, agg_hn), new_es
 
 
-def _interact_dense(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, de, compute_dtype=None):
+def _interact_dense(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, de, compute_dtype=None, *,
+                    x_sender_table: Optional[torch.Tensor] = None):
     """One interaction step over one DenseEdges set."""
-    x, (new_e,) = _interact_dense_scales(block, x, [e], [de], compute_dtype)
+    x, (new_e,) = _interact_dense_scales(block, x, [e], [de], compute_dtype, x_sender_table=x_sender_table)
     return x, new_e
 
 

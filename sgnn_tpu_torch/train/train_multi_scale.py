@@ -36,26 +36,47 @@ train_multi_scale.py:356-381``; ``parallel/data_parallel.DataParallelStep``
 over the mesh of ``devices``, which may name one device several times):
 each replica flattens its own samples' static graphs
 (``ms_forward_batched``) and divides its masked sums by the global batch's
-count; ``predict`` ignores it, as JAX's. Graph-parallel runs of this family
-are not ported yet (ROADMAP.md, Queue A item 6b).
+count. ``graph_parallel: P`` (with ``batch_size: 1``, and not with
+``data_parallel``; ``sgnn_tpu/train/train_multi_scale.py:382-451``) plans
+one exact slab partition per training trajectory with one set of shapes
+(``parallel/ms_partition.ms_dataset_partition``; the dense layout only for
+``ms_dense: True``), keeps each trajectory's sharded graph on the card,
+x-sorts each sample into its trajectory's plan (``ms_partition_sample``)
+and trains with ``MSPartitionedTrainStep`` (one halo exchange per
+interaction block); the validation rolls out partitioned
+(``make_ms_partitioned_host_rollout``). ``predict`` ignores both, as JAX's.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import pickle
 import sys
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from sgnn_tpu_torch.data.loader import load_metadata
-from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
+from sgnn_tpu_torch.data.loader import SampleBatcher, load_metadata
+from sgnn_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from sgnn_tpu_torch.data.static_graph_loader import MultiScaleSampleBatcher, MultiScaleTrajectoryLoader
 from sgnn_tpu_torch.parallel.data_parallel import DataParallelStep
+from sgnn_tpu_torch.parallel.edge_partition import PartitionSpec1D
+from sgnn_tpu_torch.parallel.mesh import Mesh
+from sgnn_tpu_torch.parallel.ms_partition import (
+    MSPartitionedTrainStep,
+    make_ms_partitioned_rollout,
+    ms_dataset_partition,
+    ms_partition_sample,
+    pinned_plans,
+    plan_ms_partition,
+    sharded_graph_to,
+)
+from sgnn_tpu_torch.physics.multi_scale_graph import DenseStaticGraph, StaticGraph
 from sgnn_tpu_torch.physics.multi_scale_simulator import (
     MultiScaleSimulator,
     MultiScaleSimulatorConfig,
@@ -99,8 +120,9 @@ def ms_config_from(cfg: TrainConfig, metadata: dict) -> MultiScaleSimulatorConfi
 
 def batch_to_device(batch: Dict[str, object], device: torch.device) -> Dict[str, object]:
     """A host batch on ``device``: its arrays as tensors, its stacked graph
-    as the same graph of tensors."""
-    return {k: graph_to(v, device) if k == "graph" else torch.from_numpy(np.asarray(v)).to(device)
+    as the same graph of tensors (a graph-parallel sample's sharded graph
+    too)."""
+    return {k: graph_to(v, device) if isinstance(v, (StaticGraph, DenseStaticGraph)) else to_device(v, device)
             for k, v in batch.items()}
 
 
@@ -153,15 +175,33 @@ def _dense_row_advantage(cfg: TrainConfig) -> float:
     return 4.0 if cfg.compute_dtype == "bfloat16" else 2.0
 
 
+@dataclass
+class MSPartitionedTraining(Training):
+    """``Training`` of a graph-parallel multi-scale run: each training
+    trajectory's plan order and sharded graph (on the mesh's first device)."""
+
+    orders: list = field(default_factory=list)
+    graphs: list = field(default_factory=list)
+
+    def epochs(self):
+        """The training samples, endlessly, each x-sorted into its
+        trajectory's plan with that trajectory's sharded graph attached."""
+        for b in self.batcher.epochs():
+            ti = int(b["traj_idx"][0])
+            out = ms_partition_sample(b, self.spec, self.orders[ti])
+            out["graph"] = self.graphs[ti]
+            yield out
+
+
 def build_training(
     cfg: TrainConfig, device: torch.device, batch_size: Optional[int] = None, devices: Optional[Sequence] = None
 ) -> Training:
     """The model from ``cfg.seed``, its optimizer, the training step (noise
-    from a generator seeded from ``cfg.seed``; data-parallel over the mesh
-    of ``devices`` when the config asks) and the batcher of the training
-    split with its static graphs in the layout ``cfg.ms_dense`` picks;
-    ``batch_size`` overrides ``cfg.batch_size``."""
-    _refuse_graph_parallel(cfg)
+    from a generator seeded from ``cfg.seed``; data- or graph-parallel over
+    the mesh of ``devices`` when the config asks) and the batcher of the
+    training split with its static graphs in the layout ``cfg.ms_dense``
+    picks (graph-parallel: a plain batcher and one partition plan per
+    trajectory); ``batch_size`` overrides ``cfg.batch_size``."""
     check_parallel(cfg)
     data_dir = Path(cfg.data_path)
     metadata = load_metadata(data_dir)
@@ -171,6 +211,19 @@ def build_training(
     optimizer = make_optimizer(sim, cfg)
     noise_gen = torch.Generator(device=device).manual_seed(cfg.seed)
     mesh = parallel_mesh(cfg, device, devices)
+    if cfg.graph_parallel > 1:
+        # the partition plans replace the batcher's static graphs
+        batcher = SampleBatcher(data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size,
+                                pad_multiple=cfg.pad_multiple, seed=cfg.seed)
+        # ms_dense: True partitions the dense layout; "auto" and False stay COO
+        spec, plans = ms_dataset_partition(sim_cfg.graph_config, [pos[0] for pos, _, _ in batcher.trajectories],
+                                           cfg.graph_parallel, layout="dense" if cfg.ms_dense is True else "coo")
+        step_fn = MSPartitionedTrainStep(mesh, sim_cfg, stats, spec, sim, optimizer, lr_schedule(cfg),
+                                         cfg.noise_std, noise_gen, loss_weight_position=cfg.loss_weight_position,
+                                         loss_weight_strain=cfg.loss_weight_strain)
+        return MSPartitionedTraining(sim, sim_cfg, stats, optimizer, step_fn, batcher, mesh, spec,
+                                     orders=[o for o, _ in plans],
+                                     graphs=[sharded_graph_to(g, mesh.primary) for _, g in plans])
     if mesh is not None:
         step_fn = DataParallelStep(lambda m, d: make_loss_fn(m, sim_cfg, stats.to(d), cfg), sim, mesh, optimizer,
                                    lr_schedule(cfg), cfg.noise_std, noise_gen)
@@ -225,13 +278,6 @@ def make_loader(cfg: TrainConfig, sim_cfg: MultiScaleSimulatorConfig, split: str
     )
 
 
-def _refuse_graph_parallel(cfg: TrainConfig) -> None:
-    if cfg.graph_parallel > 1:
-        raise NotImplementedError(
-            "graph_parallel is not ported yet for the multi-scale family (ROADMAP.md, Queue A item 6b)"
-        )
-
-
 def _rollout_fn(sim_cfg: MultiScaleSimulatorConfig, stats: NormStats, mode: str, device: torch.device) -> Callable:
     """The rollout ``predict`` and the validation run: ``ms_rollout``, its
     step captured in a CUDA graph on the card."""
@@ -243,12 +289,78 @@ def _rollout_fn(sim_cfg: MultiScaleSimulatorConfig, stats: NormStats, mode: str,
     return rollout
 
 
+# rollout outputs whose axis 1 is the node axis
+_NODE_AXIS1_KEYS = ("initial_positions", "initial_strains", "predicted_rollout", "ground_truth_rollout",
+                    "predicted_strain", "ground_truth_strain")
+
+
+def make_ms_partitioned_host_rollout(mesh: Mesh, sim_cfg: MultiScaleSimulatorConfig, stats: NormStats,
+                                     spec: PartitionSpec1D, mode: str, frames: Sequence = ()) -> Callable:
+    """The graph-parallel rollout with host-side planning per trajectory,
+    with ``_rollout_fn``'s call signature (the loader's graph is ignored):
+    each trajectory is planned from the t = 0 positions of its real nodes,
+    pinned to the training spec's slabs and halo, rolled out by
+    ``make_ms_partitioned_rollout`` (its step captured where the mesh is
+    one card) and its outputs scattered back to the caller's order. It
+    plans the COO layout whatever layout training takes, as JAX's does.
+    The trajectories whose t = 0 positions ``frames`` lists are planned
+    up front with one set of shapes (``pinned_plans``), so that one capture
+    serves them all; every plan's sharded graph goes to the card once and
+    is kept, keyed on its frame's bytes; a trajectory not among ``frames``
+    is planned when it comes, with shapes of its own."""
+    run = make_ms_partitioned_rollout(mesh, sim_cfg, stats, spec, inference_mode=mode)
+    plans: Dict[tuple, tuple] = {}
+
+    def key(frame) -> tuple:
+        frame = np.ascontiguousarray(frame, np.float32)
+        return frame.shape, hashlib.sha1(frame.tobytes()).hexdigest()
+
+    def keep(frame, order, graph) -> None:
+        plans[key(frame)] = (order, sharded_graph_to(graph, mesh.primary))
+
+    for frame, (order, graph) in zip(frames, pinned_plans(sim_cfg.graph_config, frames, spec) if frames else ()):
+        keep(frame, order, graph)
+
+    def _rollout(sim, positions, types, strains, node_mask, graph_unused=None):
+        del graph_unused
+        pos, ty = np.asarray(positions), np.asarray(types)
+        st, m = np.asarray(strains), np.asarray(node_mask, bool)
+        idx = np.nonzero(m)[0]
+        if key(pos[idx, 0]) not in plans:
+            _, order_rel, graph = plan_ms_partition(sim_cfg.graph_config, pos[idx, 0], spec.num_shards,
+                                                    nodes_per_shard=spec.nodes_per_shard, halo=spec.halo)
+            keep(pos[idx, 0], order_rel, graph)
+        order_rel, graph = plans[key(pos[idx, 0])]
+        order = idx[order_rel]
+        nt, k = spec.total_nodes, len(order)
+        pos_s = np.zeros((nt, *pos.shape[1:]), pos.dtype)
+        pos_s[:k] = pos[order]
+        ty_s = np.zeros(nt, ty.dtype)
+        ty_s[:k] = ty[order]
+        st_s = np.zeros((st.shape[0], nt), st.dtype)  # strains are [T, N]: the node axis is axis 1
+        st_s[:, :k] = st[:, order]
+        m_s = np.arange(nt) < k
+        out = run(sim, pos_s, ty_s, st_s, m_s, graph)
+        n_view, order_d = pos.shape[0], torch.as_tensor(order, device=mesh.primary)
+        for name, v in out.items():
+            if name == "particle_types":
+                buf = v.new_zeros((n_view, *v.shape[1:]))
+                buf[order_d] = v[:k]
+                out[name] = buf
+            elif name in _NODE_AXIS1_KEYS:
+                buf = v.new_zeros((v.shape[0], n_view, *v.shape[2:]))
+                buf[:, order_d] = v[:, :k]
+                out[name] = buf
+        return out
+
+    return _rollout
+
+
 def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] = None) -> dict:
-    """Train on ``device`` (CUDA unless told otherwise; a data-parallel run
-    over the mesh of ``devices``, whose first is ``device``); returns
-    ``{"step", "lowest_eval_loss"}``."""
+    """Train on ``device`` (CUDA unless told otherwise; a data- or
+    graph-parallel run over the mesh of ``devices``, whose first is
+    ``device``); returns ``{"step", "lowest_eval_loss"}``."""
     dev = resolve_device(device)
-    _refuse_graph_parallel(cfg)
     check_parallel(cfg)
     inner = max(1, int(cfg.inner_steps))
     for name in ("log_every", "nsave_steps", "ntraining_steps"):
@@ -271,7 +383,13 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
 
     batcher, train_step = built.batcher, built.step_fn
     valid_loader = make_loader(cfg, sim_cfg, "valid")
-    rollout = _rollout_fn(sim_cfg, stats, cfg.inference_mode, dev)
+    if cfg.graph_parallel > 1:
+        rollout = make_ms_partitioned_host_rollout(built.mesh, sim_cfg, stats, built.spec, cfg.inference_mode,
+                                                   frames=[pos[0] for pos, _, _ in valid_loader.trajectories])
+        print(f"ms graph-parallel: {cfg.graph_parallel} shards x {built.spec.nodes_per_shard} nodes "
+              f"(halo {built.spec.halo})")
+    else:
+        rollout = _rollout_fn(sim_cfg, stats, cfg.inference_mode, dev)
     monitor = ResourceMonitor(dev)
     sched = lr_schedule(cfg)
     print(
@@ -343,9 +461,9 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
 
 def predict(cfg: TrainConfig, device: Device = None) -> dict:
     """Rollout over valid (mode=valid) or test (mode=rollout) trajectories,
-    on ``device`` (CUDA unless told otherwise)."""
+    on ``device`` (CUDA unless told otherwise). Like JAX's, it ignores
+    ``data_parallel`` and ``graph_parallel``: one device rolls out."""
     dev = resolve_device(device)
-    _refuse_graph_parallel(cfg)
     data_dir = Path(cfg.data_path)
     metadata = load_metadata(data_dir)
     sim_cfg = ms_config_from(cfg, metadata)

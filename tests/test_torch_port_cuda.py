@@ -836,14 +836,22 @@ def _parallel_batches(trainer, built, device, n):
     return [trainer.batch_to_device(next(source), device) for _ in range(n)]
 
 
-@pytest.mark.parametrize("family,kw", [("single_scale", dict(data_parallel=2)),
-                                       ("multi_scale", dict(data_parallel=2, ms_dense=True)),
-                                       ("single_scale", dict(graph_parallel=2, batch_size=1))],
-                         ids=["dp_A_f32", "dp_dense_f32", "gp_A_f32"])
+PARALLEL_RUNS = dict(
+    argnames="family,kw",
+    argvalues=[("single_scale", dict(data_parallel=2)), ("multi_scale", dict(data_parallel=2, ms_dense=True)),
+               ("single_scale", dict(graph_parallel=2, batch_size=1)),
+               ("multi_scale", dict(graph_parallel=2, batch_size=1, ms_dense=True)),
+               ("multi_scale", dict(graph_parallel=2, batch_size=1, ms_dense=False))],
+    ids=["dp_A_f32", "dp_dense_f32", "gp_A_f32", "gp_ms_dense_f32", "gp_ms_coo_f32"],
+)
+
+
+@pytest.mark.parametrize(**PARALLEL_RUNS)
 def test_parallel_training_captured_equals_eager(cuda, tiny_data, family, kw):
     """A data-parallel step (2 replicas) and a graph-parallel step (2
-    shards) on one card: one captured graph per step, equal to the eager
-    loop with torch.equal on every parameter, Adam's state and metric."""
+    shards; multi-scale: both layouts) on one card: one captured graph per
+    step, equal to the eager loop with torch.equal on every parameter,
+    Adam's state and metric."""
     cfg = _train_config(tiny_data, family, **kw)
     trainer = _trainer(family)
     devices = [cuda, cuda]
@@ -885,10 +893,7 @@ def test_rejected_captured_step_leaves_parameters_and_adam_bit_equal(cuda, tiny_
     step.close()
 
 
-@pytest.mark.parametrize("family,kw", [("single_scale", dict(data_parallel=2)),
-                                       ("multi_scale", dict(data_parallel=2, ms_dense=True)),
-                                       ("single_scale", dict(graph_parallel=2, batch_size=1))],
-                         ids=["dp_A_f32", "dp_dense_f32", "gp_A_f32"])
+@pytest.mark.parametrize(**PARALLEL_RUNS)
 def test_parallel_training_on_two_cards_equals_one_card(cuda, tiny_data, family, kw):
     """The same parallel run with its second replica or shard on a second
     card (a copy of the model there, its gradients folded onto the first

@@ -442,14 +442,27 @@ def test_inference_cli_runs_predict(tiny_data, tmp_path):
 
 
 def test_train_mode_is_refused(tiny_data, tmp_path):
-    """Training runs (tests/test_torch_port_ms_train.py), data-parallel too
-    (tests/test_torch_port_dp.py); graph-parallel training and prediction
-    of this family are refused."""
-    kw = dict(graph_parallel=2, batch_size=1)
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        ttms.train(tiny_config(tiny_data, mode="train", run_name="refused", **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        ttms.predict(tiny_config(tiny_data, **kw), device="cpu")
+    """Training runs (tests/test_torch_port_ms_train.py), data- and
+    graph-parallel too (tests/test_torch_port_dp.py,
+    tests/test_torch_port_ms_partition.py); a graph-parallel training run
+    is refused, as JAX's, with data_parallel and with a batch of more than
+    one sample. predict ignores graph_parallel, as JAX's: the summary of
+    graph_parallel: 2 equals that of 1."""
+    kw = dict(mode="train", run_name="refused", graph_parallel=2)
+    cpu2 = ["cpu", "cpu"]
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ttms.train(tiny_config(tiny_data, batch_size=1, data_parallel=2, **kw), device="cpu", devices=cpu2 * 2)
+    with pytest.raises(ValueError, match="batch_size"):
+        ttms.train(tiny_config(tiny_data, batch_size=2, **kw), device="cpu", devices=cpu2)
+    cfg = tiny_config(tiny_data, run_name="ms_gp_predict", mode="valid")
+    _, _, params, _ = jax_params_for(cfg, tiny_data)
+    CheckpointManager(tiny_data / "models" / "ms_gp_predict").save_best(
+        {"params": ms_state_dict_from_jax(params), "opt_state": None, "step": 0}, 0, float("inf"))
+    one = ttms.predict(cfg, device="cpu")
+    two = ttms.predict(dataclasses.replace(cfg, graph_parallel=2, batch_size=1), device="cpu")
+    assert set(one) == set(two)
+    for key in ("total", "position", "strain", "one_step"):
+        assert one[key] == two[key], key
 
 
 @pytest.fixture
