@@ -122,20 +122,43 @@ each of which raises on failure:
      same layout (GP_MS_ROLLOUT_TOL) and its captured route against its
      eager one (torch.equal), the plan's slab, halo and per-type sizes;
      dense bf16: one step against one device (GP_MS_TOL). Launch counters
-     are set to 0 before each route; one ``parallel {...}`` JSON line.
+     are set to 0 before each route; one ``parallel {...}`` JSON line;
+ 12. capacity knobs: the native radius search (built with g++) against
+     cKDTree on the dataset's first frame; config A's captured training
+     step at full width for every remat mode (``False``, ``"xj"``,
+     ``"xj_msg"``, ``"full"``, ``"group"``) on one staged batch, equal to
+     ``False`` and to its own eager step (torch.equal: metrics, gradients,
+     parameters, Adam), with the launches per step of REMAT_LAUNCHES, peak
+     memory of the capturing and replaying calls, busy time through
+     ``utils/profiling``; B's packed gather against the unfused route
+     (torch.equal, and both captured steps timed in one call: RACE_REPS);
+     B with ``band_nodes`` from the data through ``train``
+     (0 violations, the reverse gathers banded, gradients equal to no
+     band) and with a lowered band (counted, warned about, the card's
+     banded gather equal to the clamp formula on the CPU); ``train`` of A
+     with ``debug_graph``, ``remat: "full"`` and a band, then ``predict``;
+     GP A with remat (against one device, captured against eager) and GP
+     B's packed symmetric route with a band (against one device; a lowered
+     band rejects the step); the capacity point, 614,400 particles
+     (CAPACITY_POINT) with B's values and a band from the lattice, one
+     captured step for remat ``False`` and ``"full"`` (torch.equal), its
+     banded gathers counted, and the packed route timed against the
+     unfused one at batches 1 and 2 (614,400 and 1,228,800 nodes;
+     torch.equal). One ``capacity {...}`` JSON line.
 
 The last lines are the training routes of 5 and 10 (one ``train routes
 {...}`` JSON line), the rollout routes of 6 and 9 (one ``routes {...}``
-JSON line), the kernel summary (JSON; the parallel routes' launches under
-``launches_by_path``), the nvidia-smi line, and
+JSON line), the kernel summary (JSON; the parallel routes' and phase 12's
+launches under ``launches_by_path``), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only row_gather_bwd
     python3 chip_smoke.py --only parallel
+    python3 chip_smoke.py --only capacity
 
 run phases 1, 2, 4 and the backward kernels' checks and times of 10 (one
-``bwd {...}`` JSON line), or phase 11 (its ``parallel {...}`` line),
-alone.
+``bwd {...}`` JSON line), phase 11 (its ``parallel {...}`` line) or
+phase 12 (its ``capacity {...}`` line), alone.
 """
 
 from __future__ import annotations
@@ -704,10 +727,12 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
     val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
     layers = cfg.layers
     ordered = 0 if sim_cfg.symmetric_gather else layers * TRAIN_STEPS  # A's sender gathers, one per layer
+    # B's packed gather: one take launch per training step and per validation rollout step
+    packed = TRAIN_STEPS + val_steps * (TRAIN_STEPS // SAVE_EVERY) if sim_cfg.symmetric_gather else 0
     expect = dict(bwd=layers * TRAIN_STEPS,
                   fwd=layers * TRAIN_STEPS + layers * val_steps * (TRAIN_STEPS // SAVE_EVERY),
                   sym_bwd=layers * TRAIN_STEPS if sim_cfg.symmetric_gather else 0,
-                  take=2 * ordered, sorted=ordered)  # the take kernel forward and over the order backward
+                  take=2 * ordered + packed, sorted=ordered)  # the take kernel forward and over the order backward
     log(f"train {name} ({cfg.compute_dtype}): batch {cfg.batch_size}, K={sim_cfg.slots}, "
         f"symmetric_gather={sim_cfg.symmetric_gather}, domain {sim_cfg.domain}")
 
@@ -1130,6 +1155,7 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
 
     from sgnn_tpu_torch.data.loader import TrajectoryLoader, load_metadata
     from sgnn_tpu_torch.ops import edge_block as eb
+    from sgnn_tpu_torch.ops import row_gather as rg
     from sgnn_tpu_torch.physics.rollout import rollout, rollout_step
     from sgnn_tpu_torch.physics.simulator import make_norm_stats, simulator_init
     from sgnn_tpu_torch.train.checkpoint import CheckpointManager
@@ -1153,8 +1179,12 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
     torch.cuda.reset_peak_memory_stats()
     eb.LAUNCHES = eb.BWD_LAUNCHES = 0
     reset_fwd_variant_launches()
+    take0 = rg.LAUNCHES["take"]
     summary = predict(cfg)  # the port's entry point, on CUDA by default: its step captured and replayed
     launches, bwd_launches = eb.LAUNCHES, eb.BWD_LAUNCHES
+    take = rg.LAUNCHES["take"] - take0
+    if take != (steps if sim_cfg.symmetric_gather else 0):  # the packed gather, once per step
+        raise AssertionError(f"rollout: the take kernel launched {take} times over {steps} steps")
     variants = dict(eb.FWD_VARIANT_LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     if launches != expected or bwd_launches != 0:
@@ -1183,7 +1213,7 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
     ms_step = warm["run_time"] / n_steps * 1e3
     result = dict(
         compute_dtype=compute_dtype, launches=launches, expected_launches=expected,
-        fwd_launches_by_kernel=variants,
+        fwd_launches_by_kernel=variants, take_launches=take,
         launches_per_step=launches / steps, steps=steps, nodes=loader.num_nodes,
         slots=sim_cfg.slots, ms_per_step=ms_step, steps_per_s=1e3 / ms_step,
         first_trajectory_s=outs[0]["run_time"], peak_memory_mb=peak_mb,
@@ -2035,11 +2065,12 @@ def bwd_gather_summary(bwd, ms_train, train_a):
     return entries
 
 
-def gather_summary(gather, probe, ms_runs, train_a):
+def gather_summary(gather, probe, ms_runs, train_a, packed_paths):
     """The kernel-summary entries of the three row-gather kernels: times
     at the dense m2m sender gather (f32), the main path's, and at every
     timed shape; launches by path (the take kernel's in config A's
-    training too: its sender gathers)."""
+    training too: its sender gathers; and B's packed gather, in training
+    and rollout: ``packed_paths``)."""
     from sgnn_tpu_torch.ops import row_gather as rg
 
     main_case = "m2m_senders_float32"
@@ -2049,6 +2080,7 @@ def gather_summary(gather, probe, ms_runs, train_a):
         by_path.update({f"ms_{n}": r["launches"][variant] for n, r in ms_runs.items()})
         if variant == rg.MODEL_VARIANT:
             by_path["train_A"] = train_a["launches"]["take"]
+            by_path.update(packed_paths)
         res = gather["results"][variant]
         main = res[main_case]
         entries.append(dict(
@@ -2829,13 +2861,593 @@ def phase_parallel(root: Path, data: Path, card, smi: str):
     return out
 
 
+# --------------------------------------------------------------------------
+# 12. the capacity knobs: remat, band_nodes, the packed gather, a capacity point
+# --------------------------------------------------------------------------
+
+# launches per training step of config A (5 layers) by remat mode, the design
+# of models/epd_flat.py (tests/test_torch_port_capacity.py counts the edge
+# block's): (edge_block_fwd, edge_block_bwd, take kernel). "xj" recomputes
+# the edge block, "full" the gather too; "group" recomputes each of its two
+# groups once, then each of its nested "full" layers again
+REMAT_LAUNCHES = {False: (5, 5, 10), "xj": (10, 5, 10), "xj_msg": (5, 5, 10), "full": (10, 5, 15),
+                  "group": (15, 5, 20)}
+KNOB_STEPS = 10  # train of B with a band and of A with the knobs set
+PROFILE_REPLAYS = 2  # captured replays traced through utils/profiling
+# the capacity point: a 1,280 x 480 bar lattice at spacing 0.5 (614,400
+# particles), r = 0.6, K = 8, config B's values, batch 1
+CAPACITY_POINT = dict(nx=1280, ny=480, spacing=0.5, slots=8)
+CAPACITY_REMATS = (False, "full")
+# the packed route against the unfused one (packed_gather_max_nodes): timed
+# replays of a captured step per visit, visits in the order packed,
+# unfused, unfused, packed; at B's 77,824 nodes and at the point's window
+# in batches of 1 and 2 (614,400 and 1,228,800 nodes)
+RACE_REPS = {"B": 20, 1: 5, 2: 3}
+
+
+def noisy_radius(cfg) -> float:
+    """The radius widened by 8 sigma of the training noise between two
+    nodes (the random walk's last frame has std noise_std * sqrt(S - 1) per
+    node and coordinate, sqrt(2) times that between two nodes): a band
+    measured at it holds on noisy steps. 4 sigma of one node, the partition
+    plan's margin, let B's steps break the band on 12-38 of 622,592 edges
+    (an H100 80GB HBM3 at 700 W)."""
+    import numpy as np
+
+    sigma_pair = cfg.noise_std * float(np.sqrt(max(cfg.input_sequence_length - 1, 1))) * float(np.sqrt(2.0))
+    return cfg.connection_radius + 8.0 * sigma_pair
+
+
+def max_band(frames, radius: float) -> int:
+    """The largest |sender - receiver| over the radius graphs of ``frames``
+    ([N, dim] arrays; uncapped, so at least the model's capped graphs')."""
+    import numpy as np
+
+    from sgnn_tpu_torch import native
+    from sgnn_tpu_torch.physics.multi_scale_graph import _radius_edges_ckdtree
+
+    worst = 0
+    for f in frames:
+        res = native.radius_search_host(np.asarray(f, np.float64), radius, 64)
+        s, r = res if res is not None else _radius_edges_ckdtree(np.asarray(f, np.float64), radius, 64)
+        worst = max(worst, int(np.abs(s - r).max()))
+    return worst
+
+
+def _capacity_counts() -> dict:
+    from sgnn_tpu_torch.ops import sym_gather as sg
+
+    return {**_launch_counts(), "banded_forward": sg.BANDED["forward"], "banded_reverse": sg.BANDED["reverse"]}
+
+
+def _state(sim, optimizer, metrics) -> dict:
+    return dict(metrics=metrics, grads={k: p.grad.detach().clone() for k, p in sim.named_parameters()},
+                params=_clone(sim.state_dict()), adam=[_clone(st) for st in optimizer.state.values()])
+
+
+def _same_state(a, b) -> bool:
+    import torch
+
+    return (all(all(torch.equal(x[k], y[k]) for k in x) for x, y in zip(a["metrics"], b["metrics"]))
+            and all(torch.equal(v, b["grads"][k]) for k, v in a["grads"].items())
+            and all(torch.equal(v, b["params"][k]) for k, v in a["params"].items())
+            and all(all(torch.equal(x[k], y[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+                    for x, y in zip(a["adam"], b["adam"])))
+
+
+def profile_replays(step_fn, batch, start: int, trace_dir: Path) -> dict:
+    """PROFILE_REPLAYS calls of a captured step traced through the port's
+    own ``utils/profiling``: device busy ms and kernels per step from
+    ``summarize_trace``'s rows, the wall per step, the top kernels."""
+    import torch
+
+    from sgnn_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    profiling.start_trace(str(trace_dir))
+    t0 = time.perf_counter()
+    for i in range(PROFILE_REPLAYS):
+        step_fn(batch, start + i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_REPLAYS
+    path = profiling.stop_trace()
+    rows = profiling.summarize_trace(path, top=5, steps=PROFILE_REPLAYS)
+    rollup = [r for r in rows if r["category"] == "rollup"]
+    busy = sum(r["ms_per_step"] for r in rollup)
+    if busy == 0:
+        return {"busy_ms_per_step": "not measured (the trace holds no device time)", "wall_ms_per_step": wall_ms}
+    return dict(busy_ms_per_step=busy, wall_ms_per_step=wall_ms, idle_share=1.0 - busy / wall_ms,
+                kernels_per_step=sum(r["launches_per_step"] for r in rollup),
+                top=[(r["name"][:60], round(r["ms_per_step"], 4)) for r in rows if r["category"] == "op"])
+
+
+def _step_run(make, batch, capture: bool, trace_dir: Path):
+    """Two calls of a fresh step (``make() -> (step_fn, sim, optimizer)``)
+    on ``batch``: the first (captured route: the warm-up step and the
+    capture) and the second (a replay), each's peak memory, the second's
+    launches and the state after it; the captured route's replays traced."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    step_fn, sim, optimizer = make()
+    step_fn.capture = capture
+    torch.cuda.reset_peak_memory_stats()
+    first = _clone(step_fn(batch, 0))
+    torch.cuda.synchronize()
+    first_peak = torch.cuda.max_memory_allocated() / 1e6
+    torch.cuda.reset_peak_memory_stats()
+    before = _capacity_counts()
+    second = _clone(step_fn(batch, 1))
+    torch.cuda.synchronize()
+    res = dict(first_call_peak_memory_mb=first_peak, step_peak_memory_mb=torch.cuda.max_memory_allocated() / 1e6,
+               launches_per_step={k: v - before[k] for k, v in _capacity_counts().items()},
+               loss=float(second["train/loss"]))
+    state = _state(sim, optimizer, [first, second])
+    if capture:
+        res.update(profile_replays(step_fn, batch, 2, trace_dir))
+    step_fn.close()
+    del step_fn, sim, optimizer
+    torch.cuda.empty_cache()
+    return res, state
+
+
+def race_routes(makes: dict, batch, reps: int) -> tuple:
+    """Two routes' captured steps (``make() -> (step_fn, sim, optimizer)``
+    each) timed in one call: visits in the order a, b, b, a; each visit
+    makes a fresh step, calls it twice (the warm-up step and the capture,
+    then a replay) and times ``reps`` more replays with CUDA events around
+    them. Returns (per route: ms per replayed step of each visit and their
+    mean; per route: the state after its first visit's two calls)."""
+    import torch
+
+    names = list(makes)
+    rounds, states = {name: [] for name in names}, {}
+    for name in names + names[::-1]:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        step_fn, sim, optimizer = makes[name]()
+        step_fn.capture = True
+        calls = [_clone(step_fn(batch, 0)), _clone(step_fn(batch, 1))]
+        states.setdefault(name, _state(sim, optimizer, calls))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(reps):
+            step_fn(batch, 2 + i)
+        end.record()
+        end.synchronize()
+        rounds[name].append(start.elapsed_time(end) / reps)
+        step_fn.close()
+        del step_fn, sim, optimizer
+    torch.cuda.empty_cache()
+    times = {name: dict(ms_per_step=sum(t) / len(t), visits=t) for name, t in rounds.items()}
+    return times, states
+
+
+def remat_modes_A(root: Path, data: Path, card) -> dict:
+    """One captured training step of A at full width per remat mode, on one
+    staged batch and the same noise stream: equal to remat=False and to its
+    own eager step (torch.equal: metrics, gradients, parameters, Adam), the
+    launches per step of REMAT_LAUNCHES, peak memory, busy time."""
+    from sgnn_tpu_torch.train import train as trainer
+
+    built = trainer.build_training(train_config(root, data, "A"), card)
+    batch = trainer.batch_to_device(next(built.epochs()), card)
+    del built
+    out, states = {}, {}
+    for mode in REMAT_LAUNCHES:
+        cfg = train_config(root, data, "A", remat=mode, run_name=f"smoke_cap_remat_{mode}")
+
+        def make():
+            b = trainer.build_training(cfg, card)
+            return b.step_fn, b.sim, b.optimizer
+
+        captured, states[mode] = _step_run(make, batch, True, root / "traces" / f"remat_{mode}")
+        eager, eager_state = _step_run(make, batch, False, root / "traces")
+        got = {k: captured["launches_per_step"][k] for k in ("edge_block_fwd", "edge_block_bwd", "take")}
+        want = dict(zip(("edge_block_fwd", "edge_block_bwd", "take"), REMAT_LAUNCHES[mode]))
+        if got != want or eager["launches_per_step"] != captured["launches_per_step"]:
+            raise AssertionError(f"remat {mode}: launches per step {captured['launches_per_step']} (eager "
+                                 f"{eager['launches_per_step']}), expected {want}")
+        if not _same_state(states[mode], eager_state):
+            raise AssertionError(f"remat {mode}: the captured step differs from the eager one")
+        if not _same_state(states[mode], states[False]):
+            raise AssertionError(f"remat {mode}: the step differs from remat=False (torch.equal)")
+        out[str(mode)] = dict(captured=captured, eager_peak_memory_mb=eager["step_peak_memory_mb"])
+        log(f"capacity remat {mode}: " + json.dumps(out[str(mode)]))
+    return out
+
+
+def packed_vs_unfused_B(root: Path, data: Path, card) -> dict:
+    """B's default route (the packed gather, 77,824 <= 1,228,800 nodes)
+    against packed_gather_max_nodes=1 (the unfused route): one step on the
+    same batch and noise, loss and every gradient torch.equal."""
+    import dataclasses
+
+    import torch
+
+    from sgnn_tpu_torch.ops import row_gather as rg
+    from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+    from sgnn_tpu_torch.train import train as trainer
+
+    cfg = train_config(root, data, "B", run_name="smoke_cap_packed")
+    batch = noise = None
+    runs = {}
+    for name, max_nodes in (("packed", None), ("unfused", 1)):
+        built = trainer.build_training(cfg, card)
+        if batch is None:
+            batch = trainer.batch_to_device(next(built.epochs()), card)
+            noise = random_walk_position_noise(tuple(batch["positions"].shape), cfg.noise_std,
+                                               generator=torch.Generator(device=card).manual_seed(5), device=card)
+        sim_cfg = built.sim_cfg
+        if max_nodes is not None:
+            sim_cfg = dataclasses.replace(sim_cfg, packed_gather_max_nodes=max_nodes)
+        if not sim_cfg.symmetric_gather:
+            raise AssertionError("packed B: the auto-rule left the symmetric gather off")
+        step = trainer.make_train_step(built.sim, sim_cfg, built.stats, cfg, built.optimizer)
+        take = rg.LAUNCHES["take"]
+        loss = step(batch, 0, noise=noise)["train/loss"].clone()
+        runs[name] = dict(loss=loss, take=rg.LAUNCHES["take"] - take,
+                          grads={k: p.grad.detach().clone() for k, p in built.sim.named_parameters()})
+        del built, step
+    p, u = runs["packed"], runs["unfused"]
+    if not (torch.equal(p["loss"], u["loss"]) and all(torch.equal(g, u["grads"][k]) for k, g in p["grads"].items())):
+        raise AssertionError("packed B: the packed route's loss or gradients differ from the unfused route's")
+    if (p["take"], u["take"]) != (1, 0):
+        raise AssertionError(f"packed B: take kernel launches {p['take']} (packed), {u['take']} (unfused)")
+
+    def make(max_nodes):
+        def made():
+            built = trainer.build_training(cfg, card)
+            sim_cfg = dataclasses.replace(built.sim_cfg, packed_gather_max_nodes=max_nodes)
+            step = trainer.make_train_step(built.sim, sim_cfg, built.stats, cfg, built.optimizer,
+                                           torch.Generator(device=card).manual_seed(cfg.seed))
+            return step, built.sim, built.optimizer
+        return made
+
+    times, states = race_routes({"packed": make(batch["node_mask"].numel()), "unfused": make(1)}, batch,
+                                RACE_REPS["B"])
+    if not _same_state(states["packed"], states["unfused"]):
+        raise AssertionError("packed B: the captured packed step differs from the captured unfused one")
+    log("capacity packed B: " + json.dumps(times))
+    return dict(check="torch.equal: loss and every gradient (eager, injected noise); metrics, gradients, "
+                      "parameters, Adam after two captured steps", loss=float(p["loss"]),
+                take_launches={"packed": p["take"], "unfused": u["take"]},
+                receivers=int(batch["node_mask"].numel()), captured_ms_per_step=times)
+
+
+def _train_captured(cfg, card):
+    """``train(cfg)`` on the card, its printed lines echoed and returned."""
+    import contextlib
+    import io
+
+    from sgnn_tpu_torch.train import train as trainer
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = trainer.train(cfg, device=card)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log("  | " + line)
+    records = [json.loads(x) for x in (Path(cfg.model_path) / cfg.run_name / "metrics.jsonl").open()]
+    return result, text, records
+
+
+def band_B(root: Path, data: Path, card) -> dict:
+    """B with band_nodes from the data: train for KNOB_STEPS steps with 0
+    violations at every log point, its reverse gathers (622,592 rows) on the
+    banded index, one step's gradients equal to no band; a band lowered
+    below this batch's graph counted, warned about, and its banded gather
+    equal to the JAX clamp formula evaluated on the CPU."""
+    import numpy as np
+    import torch
+
+    from sgnn_tpu_torch.data.loader import TrajectoryLoader, load_metadata
+    from sgnn_tpu_torch.ops import sym_gather as sg
+    from sgnn_tpu_torch.ops.neighbors import radius_neighbors_grid_batched
+    from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+    from sgnn_tpu_torch.train import train as trainer
+
+    base = train_config(root, data, "B")
+    frames = [f for pos, _, _ in TrajectoryLoader(data / "train.npz").trajectories for f in pos]
+    band = max_band(frames, noisy_radius(base))
+    cfg = train_config(root, data, "B", run_name="smoke_cap_band_B", band_nodes=band, ntraining_steps=KNOB_STEPS,
+                       nsave_steps=KNOB_STEPS, log_every=1)
+    sg.BANDED.update(forward=0, reverse=0)
+    result, _, records = _train_captured(cfg, card)
+    banded = dict(sg.BANDED)
+    viol = [r["train/band_violations"] for r in records if "train/band_violations" in r]
+    if len(viol) != KNOB_STEPS or any(viol) or result["step"] != KNOB_STEPS:
+        raise AssertionError(f"band B: band_violations at the log points {viol}, {result}")
+    if banded["reverse"] != cfg.layers * KNOB_STEPS:  # the sender tables (77,824 rows) stay plain
+        raise AssertionError(f"band B: banded gathers {banded}, expected the {cfg.layers} reverse gathers per step")
+
+    # one step with and without the band: the same gradients
+    built = trainer.build_training(cfg, card)
+    batch_np = next(built.epochs())
+    batch = trainer.batch_to_device(batch_np, card)
+    noise = random_walk_position_noise(tuple(batch["positions"].shape), cfg.noise_std,
+                                       generator=torch.Generator(device=card).manual_seed(6), device=card)
+    with_band = step_outputs(built, batch, noise)
+    del built
+    without = step_outputs(trainer.build_training(train_config(root, data, "B"), card), batch, noise)
+    if not all(torch.equal(g, without["grads"][k]) for k, g in with_band["grads"].items()):
+        raise AssertionError("band B: gradients differ from band_nodes=None")
+
+    # a band one below this batch's own graph: counted and warned about
+    pos, mask = batch_np["positions"][..., -1, :], batch_np["node_mask"]
+    lowered = max_band([p[m] for p, m in zip(pos, mask)], base.connection_radius) - 1
+    low_cfg = train_config(root, data, "B", run_name="smoke_cap_band_B_low", band_nodes=lowered, ntraining_steps=1,
+                           nsave_steps=1000, log_every=1)
+    _, text, records = _train_captured(low_cfg, card)
+    low_viol = [r["train/band_violations"] for r in records if "train/band_violations" in r]
+    if not low_viol or low_viol[0] <= 0 or "banded-gather contract violations" not in text:
+        raise AssertionError(f"band B lowered to {lowered}: violations {low_viol}, no warning printed")
+
+    # the banded reverse gather at the lowered band: the card's index and
+    # gather against the clamp formula on the CPU
+    sim_cfg = trainer.simulator_config_from(cfg, load_metadata(data))
+    nl = radius_neighbors_grid_batched(batch["positions"][..., -1, :], sim_cfg.connectivity_radius,
+                                       domain_min=tuple(sim_cfg.domain[0]), domain_max=tuple(sim_cfg.domain[1]),
+                                       max_neighbors=sim_cfg.slots, node_mask=batch["node_mask"],
+                                       cell_capacity=sim_cfg.cell_capacity)
+    rev_pos, rev_ok = sg.reverse_edge_positions(nl.senders, nl.mask)
+    rows = rev_pos.numel()
+    idx = sg.reverse_banded_index(rev_pos, rows, lowered)
+    idx_cpu = sg.reverse_banded_index(rev_pos.cpu(), rows, lowered)
+    cot = torch.randn(rows, sim_cfg.latent_dim, generator=torch.Generator(device=card).manual_seed(7),
+                      device=card).bfloat16()
+    got = cot.index_select(0, idx)
+    if idx is None or not (torch.equal(idx.cpu(), idx_cpu) and torch.equal(got.cpu(), cot.cpu()[idx_cpu])):
+        raise AssertionError("band B: the card's banded reverse gather differs from the clamp formula on the CPU")
+    moved = int((idx.cpu() != rev_pos.reshape(-1).long().cpu()).sum())
+    margin = f"radius widened to {noisy_radius(base):.4f} (8 sigma of the noise between two nodes)"
+    return dict(band_nodes=band, margin=margin,
+                band_violations=viol, banded_gathers=banded, steps=KNOB_STEPS,
+                reverse_gather_rows=rows, grads_equal_to_no_band=True,
+                lowered=dict(band_nodes=lowered, violations=low_viol, warned=True,
+                             banded_index_rows_moved_by_the_clamp=moved, gather_vs_cpu="torch.equal"))
+
+
+def knobs_through_train_A(root: Path, data: Path, card) -> dict:
+    """``train`` of A with debug_graph, remat "full" and a band: the audit
+    line with no spot-check failure, train/band_violations in the metrics,
+    then ``predict`` from its checkpoint."""
+    import math
+
+    from sgnn_tpu_torch.data.loader import TrajectoryLoader
+    from sgnn_tpu_torch.train import train as trainer
+
+    base = train_config(root, data, "A")
+    frames = [f for pos, _, _ in TrajectoryLoader(data / "train.npz").trajectories for f in pos]
+    band = max_band(frames, noisy_radius(base))
+    cfg = train_config(root, data, "A", run_name="smoke_cap_knobs_A", debug_graph=True, remat="full",
+                       band_nodes=band, ntraining_steps=KNOB_STEPS, nsave_steps=KNOB_STEPS, log_every=5)
+    result, text, records = _train_captured(cfg, card)
+    viol = [r["train/band_violations"] for r in records if "train/band_violations" in r]
+    if "graph audit" not in text or "spot checks OK" not in text or "spot-check failures" in text:
+        raise AssertionError("knobs A: no clean graph audit line")
+    if len(viol) != KNOB_STEPS // 5 or any(viol) or result["step"] != KNOB_STEPS:
+        raise AssertionError(f"knobs A: band_violations {viol}, {result}")
+    meta = json.loads((Path(cfg.model_path) / cfg.run_name / "checkpoint_meta.json").read_text())
+    cfg.mode, cfg.model_file = "rollout", meta["path"]
+    summary = trainer.predict(cfg, device=card)
+    if not math.isfinite(summary["total"]):
+        raise AssertionError(f"knobs A: predict {summary}")
+    audit = next(line for line in text.splitlines() if "avg_degree" in line).strip()
+    return dict(band_nodes=band, audit=audit, band_violations=viol, predict_loss=summary["total"],
+                checkpoint=meta["path"])
+
+
+def gp_knobs(root: Path, data: Path, card, smi: str) -> dict:
+    """The graph partition with the knobs: gp_A with remat "full" (its
+    first step against one device at GP_TOL, captured against eager);
+    B's symmetric route on the big bar (f32, packed over the ext rows) with
+    a band from the x-sorted frames (its first step against one device at
+    GP_SYM_TOL), and a band lowered below the first sample's graph, which
+    the guard counts and which rejects the step."""
+    import numpy as np
+    import torch
+
+    from sgnn_tpu_torch.data.loader import TrajectoryLoader
+    from sgnn_tpu_torch.physics.noise import random_walk_position_noise
+    from sgnn_tpu_torch.train import train as trainer
+
+    devices, shards = [card, card], 2
+    cfg = train_config(root, data, "A", run_name="smoke_cap_gp_A", graph_parallel=shards, batch_size=1, remat="full")
+    single = train_config(root, data, "A", run_name="smoke_cap_gp_A_single")
+    gp_a = gp_vs_one_device("capacity gp A (remat full) vs one device", cfg, single, card, 0, GP_TOL)
+    gp_a["routes"] = training_routes("capacity gp A remat full", cfg, card, trainer, devices=devices)
+    torch.cuda.empty_cache()
+
+    big = root / "data_big" if (root / "data_big" / "train.npz").exists() else make_big_bar(root)
+    f32 = dict(compute_dtype="float32", symmetric_gather=True)
+    base = train_config(root, big, "B", **f32)
+    frames = [f[np.argsort(f[:, 0], kind="stable")]
+              for pos, _, _ in TrajectoryLoader(big / "train.npz").trajectories for f in pos]
+    band = max_band(frames, noisy_radius(base))
+    kw = dict(run_name="smoke_cap_gp_B_band", band_nodes=band, **f32)
+    gp_cfg = train_config(root, big, "B", graph_parallel=shards, batch_size=1, **kw)
+    first = gp_vs_one_device("capacity gp B (band, packed, f32) vs one device", gp_cfg,
+                             train_config(root, big, "B", batch_size=1, **kw), card, shards * base.layers, GP_SYM_TOL)
+    built = trainer.build_training(gp_cfg, card, devices=devices)
+    sample = next(built.epochs())
+    lowered = max_band([sample["positions"][sample["node_mask"], -1]], base.connection_radius) - 1
+    del built
+    built = trainer.build_training(dataclasses.replace(gp_cfg, band_nodes=lowered), card, devices=devices)
+    batch = trainer.batch_to_device(sample, card)
+    noise = random_walk_position_noise(tuple(batch["positions"].shape), base.noise_std,
+                                       generator=torch.Generator(device=card).manual_seed(8), device=card)
+    rejected = step_outputs(built, batch, noise)
+    del built
+    m = rejected["metrics"]
+    unchanged = all(torch.equal(v, rejected["before"][k]) for k, v in rejected["params"].items())
+    if m["train/halo_violations"] <= 0 or m["train/halo_rejected"] != 1 or not unchanged:
+        raise AssertionError(f"capacity gp B: band {lowered} gave {m}, parameters unchanged: {unchanged}")
+    return dict(gp_A_remat_full=gp_a, gp_B_band=dict(band_nodes=band, first_step_vs_one_device=first,
+                                                      lowered=dict(band_nodes=lowered, metrics=m,
+                                                                   parameters_unchanged=unchanged)),
+                nvidia_smi=smi)
+
+
+def capacity_point(root: Path, data: Path, card) -> dict:
+    """One graph of 614,400 particles (CAPACITY_POINT) with B's values and a
+    band from the lattice: one captured step per CAPACITY_REMATS mode,
+    gradients torch.equal between them, peak memory of the capturing and
+    the replaying call, busy time through utils/profiling, the banded
+    gathers per step."""
+    import numpy as np
+    import torch
+
+    from sgnn_tpu_torch.data.loader import load_metadata
+    from sgnn_tpu_torch.data.synthetic import simulate_taylor_impact
+    from sgnn_tpu_torch.physics.simulator import SimulatorConfig, make_norm_stats, simulator_init
+    from sgnn_tpu_torch.train import train as trainer
+
+    cfg = train_config(root, data, "B", batch_size=1, run_name="smoke_cap_point")
+    s = cfg.input_sequence_length
+    pt = CAPACITY_POINT
+    t0 = time.perf_counter()
+    pos, _, stress = simulate_taylor_impact(nx=pt["nx"], ny=pt["ny"], spacing=pt["spacing"], num_steps=s + 1,
+                                            rng=np.random.default_rng(0))
+    gen_s = time.perf_counter() - t0
+    n = pos.shape[1]
+    band = max_band(list(pos), noisy_radius(cfg))
+    lo, hi = pos.reshape(-1, 2).min(0).astype(np.float64), pos.reshape(-1, 2).max(0).astype(np.float64)
+    pad = 0.25 * (hi - lo) + 4 * cfg.connection_radius  # the trainer's domain rule
+    domain = (tuple(lo - pad), tuple(hi + pad))
+
+    def point_batch(b):  # the window, b times
+        def rep(a):
+            return torch.as_tensor(np.repeat(a[None], b, axis=0), device=card)
+
+        return {"positions": rep(np.transpose(pos[:s], (1, 0, 2))), "next_position": rep(pos[s]),
+                "next_strain": rep(stress[s]), "particle_type": torch.zeros((b, n), dtype=torch.int64, device=card),
+                "node_mask": torch.ones((b, n), dtype=torch.bool, device=card)}
+
+    stats = make_norm_stats(load_metadata(data), cfg.noise_std, device=card)
+
+    def maker(mode, max_nodes):
+        sim_cfg = SimulatorConfig(
+            latent_dim=cfg.hidden_dim, num_message_passing_steps=cfg.layers, connectivity_radius=cfg.connection_radius,
+            input_sequence_length=s, neighbor_slots=pt["slots"], symmetric_gather=True, compute_dtype="bfloat16",
+            domain=domain, band_nodes=band, remat=mode, packed_gather_max_nodes=max_nodes)
+
+        def make():
+            sim = simulator_init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=card)
+            optimizer = trainer.make_optimizer(sim, cfg)
+            step = trainer.make_train_step(sim, sim_cfg, stats, cfg, optimizer,
+                                           torch.Generator(device=card).manual_seed(cfg.seed))
+            return step, sim, optimizer
+        return make
+
+    batch = point_batch(1)
+    out, states = {}, {}
+    for mode in CAPACITY_REMATS:
+        res, states[mode] = _step_run(maker(mode, n), batch, True, root / "traces" / f"point_{mode}")
+        if states[mode]["metrics"][1]["train/band_violations"] != 0:
+            raise AssertionError(f"capacity point: band {band} broken: {states[mode]['metrics'][1]}")
+        launches = res["launches_per_step"]
+        if launches["banded_reverse"] != cfg.layers or launches["banded_forward"] < cfg.layers:
+            raise AssertionError(f"capacity point remat {mode}: banded gathers {launches}")
+        out[str(mode)] = res
+        log(f"capacity point remat {mode}: " + json.dumps(res))
+    if not _same_state(states["full"], states[False]):
+        raise AssertionError("capacity point: remat full's step differs from remat=False's (torch.equal)")
+    races = {}
+    for b in (1, 2):
+        del batch
+        batch = point_batch(b)
+        times, raced = race_routes({"packed": maker(False, b * n), "unfused": maker(False, 1)}, batch, RACE_REPS[b])
+        if not _same_state(raced["packed"], raced["unfused"]):
+            raise AssertionError(f"capacity point, batch {b}: the packed step differs from the unfused one")
+        if raced["packed"]["metrics"][1]["train/band_violations"] != 0:
+            raise AssertionError(f"capacity point, batch {b}: band {band} broken")
+        races[f"{b * n}_nodes"] = times
+        log(f"capacity point packed vs unfused, batch {b}: " + json.dumps(times))
+    return dict(particles=n, lattice=f"{pt['nx']} x {pt['ny']} at spacing {pt['spacing']}", slots=pt["slots"],
+                window="simulate_taylor_impact (the port's synthetic generator) at this size, frames 0-"
+                       f"{s} (generated in {gen_s:.1f} s)",
+                band_nodes=band, table_rows={"forward_packed": n, "reverse": n * pt["slots"]},
+                check="torch.equal: remat full vs False, metrics, gradients, parameters, Adam; packed vs unfused "
+                      "(remat False, batches 1 and 2)", modes=out, packed_vs_unfused_ms_per_step=races)
+
+
+def native_search_check(data: Path) -> dict:
+    """The native radius search, built by this run with the host g++: the
+    multi-scale graph builder takes it; its edges equal cKDTree's on the
+    first frame of the dataset (the grid radius, the builder's cap)."""
+    import numpy as np
+
+    from sgnn_tpu_torch import native
+    from sgnn_tpu_torch.data.loader import TrajectoryLoader
+    from sgnn_tpu_torch.physics import multi_scale_graph as msg
+
+    if not native.available():
+        raise AssertionError("native radius search: the library did not build")
+    frame = np.asarray(TrajectoryLoader(data / "train.npz").trajectories[0][0][0], np.float64)
+    gc = msg.MultiScaleConfig(num_scales=MS_MODEL["num_scales"], window_size=MS_MODEL["window_size"],
+                              radius_multiplier=MS_MODEL["radius_multiplier"])
+    t0 = time.perf_counter()
+    nat = msg._radius_edges(frame, gc.grid_radius, gc.max_neighbors)
+    native_s = time.perf_counter() - t0
+    if native.LAST_SEARCH != "native":
+        raise AssertionError(f"native radius search: the builder took {native.LAST_SEARCH}")
+    t0 = time.perf_counter()
+    ref = msg._radius_edges_ckdtree(frame, gc.grid_radius, gc.max_neighbors)
+    ckdtree_s = time.perf_counter() - t0
+    if not (np.array_equal(nat.senders, ref.senders) and np.array_equal(nat.receivers, ref.receivers)):
+        raise AssertionError("native radius search: its edges differ from cKDTree's")
+    return dict(library=native.library_path().name, edges=int(len(nat.senders)), points=int(len(frame)),
+                radius=gc.grid_radius, native_s=native_s, ckdtree_s=ckdtree_s, equal_to_ckdtree=True)
+
+
+def phase_capacity(root: Path, data: Path, card, smi: str) -> dict:
+    """Phase 12: the capacity knobs (one ``capacity {...}`` JSON line)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = dict(native_search=native_search_check(data))
+    out["remat_A"] = remat_modes_A(root, data, card)
+    out["packed_B"] = packed_vs_unfused_B(root, data, card)
+    torch.cuda.empty_cache()
+    out["band_B"] = band_B(root, data, card)
+    torch.cuda.empty_cache()
+    out["knobs_A"] = knobs_through_train_A(root, data, card)
+    torch.cuda.empty_cache()
+    out["graph_partition"] = gp_knobs(root, data, card, smi)
+    torch.cuda.empty_cache()
+    out["capacity_point"] = capacity_point(root, data, card)
+    torch.cuda.empty_cache()
+    out.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    log("capacity " + json.dumps(out))
+    return out
+
+
+def add_capacity_launches(kernels, cap) -> None:
+    """Phase 12's launches per step under each kernel's ``launches_by_path``:
+    config A's remat modes (f32) and the capacity point's (bf16)."""
+    keys = {"edge_block_fwd": "edge_block_fwd", "edge_block_bwd": "edge_block_bwd", "row_gather_take": "take"}
+    a = {f"capacity_A_remat_{m}_per_step": r["captured"]["launches_per_step"] for m, r in cap["remat_A"].items()}
+    point = {f"capacity_point_remat_{m}_per_step": r["launches_per_step"]
+             for m, r in cap["capacity_point"]["modes"].items()}
+    for entry in kernels:
+        key = keys.get(entry["name"])
+        if key is None:
+            continue
+        for paths, dtype in ((a, "float32"), (point, "bfloat16")):
+            if key == "take" or entry.get("dtype") == dtype:
+                entry["launches_by_path"].update({path: counts[key] for path, counts in paths.items()})
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
-    parser.add_argument("--only", choices=["row_gather_bwd", "parallel"], help="run only this phase (after 1, 2 and 4)")
+    parser.add_argument("--only", choices=["row_gather_bwd", "parallel", "capacity"],
+                        help="run only this phase (after 1, 2 and 4)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card", file=sys.stderr)
@@ -2878,6 +3490,9 @@ def main() -> int:
             return 0
         if only == "parallel":
             phase_parallel(root, data, card, smi)
+            return 0
+        if only == "capacity":
+            phase_capacity(root, data, card, smi)
             return 0
         train_rows = {CONFIGS[n]["compute_dtype"]: CONFIGS[n]["batch_size"] * nodes for n in CONFIGS}
 
@@ -2922,6 +3537,11 @@ def main() -> int:
         for name in MS_RUNS:
             ms_runs[name] = run_ms(root, data, name, ms_ckpt, smi, kind)
             torch.cuda.empty_cache()
+        from sgnn_tpu_torch import native
+
+        if native.LAST_SEARCH != "native":
+            raise AssertionError(f"multi-scale graphs: built by the {native.LAST_SEARCH} search, not the native one")
+        log(f"multi-scale graphs: native radius search ({native.library_path().name}, built by this run with g++)")
         log(f"phases 1-9: {time.perf_counter() - t_start:.1f} s")
 
         # 10. multi-scale training, through train_multi_scale.main; the
@@ -2941,6 +3561,10 @@ def main() -> int:
         # 11. parallel runs: replicas and shards on the one card
         parallel = phase_parallel(root, data, card, smi)
         log(f"phase 11: {time.perf_counter() - t_start:.1f} s in all")
+
+        # 12. the capacity knobs: remat, band_nodes, the packed gather, a capacity point
+        capacity = phase_capacity(root, data, card, smi)
+        log(f"phase 12: {time.perf_counter() - t_start:.1f} s in all")
 
     by_dtype = {trained[n][0]["compute_dtype"]: trained[n][0] for n in CONFIGS}
     kernels = []
@@ -2972,9 +3596,12 @@ def main() -> int:
                 entry["at_rollout_shape"] = {k: res["at_rollout_shape"][k] for k in
                                              ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
             kernels.append(entry)
-    kernels.extend(gather_summary(gather, probe, ms_runs, trained["A"][0]))
+    kernels.extend(gather_summary(gather, probe, ms_runs, trained["A"][0],
+                                  {"train_B": trained["B"][0]["launches"]["take"],
+                                   "rollout_bfloat16": rollouts["bfloat16"]["take_launches"]}))
     kernels.extend(bwd_gather_summary(bwd_gather, ms_train, trained["A"][0]))
     add_parallel_launches(kernels, parallel)
+    add_capacity_launches(kernels, capacity)
     log("library " + json.dumps({"index_select": kernel_results["index_select"],
                                  "fixed_batch_losses": fixed, "card_vs_cpu_step": step_checks,
                                  "sym_gather_backward_check": sym_check, "c2_cost": c2,

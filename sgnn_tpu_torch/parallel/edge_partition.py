@@ -24,7 +24,14 @@ lockstep (``mesh.Mesh``; a mesh may put several shards on one device):
     kernel with the sorted-sum backward over the table's N_ext rows; at
     ``_SYM_MIN_LOCAL_ROWS`` local rows and more with ``symmetric_gather``,
     ``sym_gather`` over the extended rows' reverse index, kept to the local
-    edges);
+    edges; up to ``packed_gather_max_nodes`` extended rows layer 0's
+    senders, the edge features' sender positions and the reverse index
+    come from one packed gather over the extended rows, as in JAX);
+  * ``band_nodes`` gives the shard's gathers the banded index with the halo
+    offset (``ops/sym_gather.py``), and the edges that break the band add
+    to the halo guard's count, so a broken band rejects the step;
+    ``remat`` checkpoints the layers over every shard at once (in
+    ``"full"`` the halo exchange recomputes too);
   * a step whose shards sit on one device is one CUDA graph on the card:
     the training step (``PartitionedTrainStep``: the halo guard gates Adam
     inside the graph, parameters and Adam's state restored with
@@ -35,10 +42,7 @@ lockstep (``mesh.Mesh``; a mesh may put several shards on one device):
 
 The numpy planning (``PartitionSpec1D``, ``partition_plan``,
 ``dataset_partition_plan``, ``scatter_to_shards``, ``partition_sample``) is
-this package's own copy. The JAX module's capacity knobs (``band_nodes``,
-``remat``) raise as on one device (ROADMAP.md, Queue A item 7); its packed
-three-stream gather is a fusion of the unfused route taken here, as on one
-device.
+this package's own copy.
 """
 
 from __future__ import annotations
@@ -50,9 +54,16 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sgnn_tpu_torch.models.epd_flat import _process_decode, encode_flat, sender_gather
+from sgnn_tpu_torch.models.encode_process_decode import mlp_ln_apply, split_first_layer
+from sgnn_tpu_torch.models.epd_flat import (
+    _process_decode,
+    _slot_mask,
+    check_remat,
+    edge_features_from,
+    sender_gather,
+)
 from sgnn_tpu_torch.ops.neighbors import NeighborList
-from sgnn_tpu_torch.ops.sym_gather import reverse_edge_positions
+from sgnn_tpu_torch.ops.sym_gather import band_violations, packed_sym_gather, reverse_edge_positions
 from sgnn_tpu_torch.parallel.mesh import Mesh, Replicas
 from sgnn_tpu_torch.physics import captured_step
 from sgnn_tpu_torch.physics.rollout import EROSIONAL_PARTICLE_ID, advance_window, cumulative_rmse
@@ -60,12 +71,10 @@ from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
     NormStats,
     SimulatorConfig,
-    _edge_features,
     _node_features_batched,
     compute_neighbors,
     decoder_postprocess,
     inverse_decoder_postprocess,
-    refuse_capacity_knobs,
 )
 from sgnn_tpu_torch.train.captured_train_step import Metrics, TrainStep, make_multi_step
 from sgnn_tpu_torch.train.loss import one_step_loss
@@ -282,34 +291,68 @@ def _sharded_forward(
     mask_ext = [m > 0 for m in _halo_exchange([m.int() for m in masks], halo, devices)]
     violations = _halo_guard([p[:, 0] for p in lasts], masks, halo, r, devices[0])
     dtype = cfg.torch_compute_dtype
-    xs, es, degrees, gathers = [], [], [], []
+    graphs, xs = [], []
     for s, sim in enumerate(sims):
         n_local = seqs[s].shape[0]
         nl_ext = compute_neighbors(cfg, pos_ext[s], mask_ext[s])  # receivers: every ext row
         nl = NeighborList(nl_ext.senders[halo : halo + n_local], nl_ext.mask[halo : halo + n_local])
+        if cfg.band_nodes is not None:
+            # a broken band makes this step's gathers wrong, as a broken halo
+            # contract does: the same count rejects the step
+            violations = violations + band_violations(nl.senders, nl.mask, cfg.band_nodes, halo).to(devices[0])
+        graphs.append((nl_ext, nl))
         nf = _node_features_batched(sim, cfg, stats[s], seqs[s], types[s])
-        ef = _edge_features(lasts[s], nl, r, table=pos_ext[s])  # sender positions from the ext array
+        xs.append(mlp_ln_apply(sim._encode_process_decode._encoder.node_fn, nf))
+    n_ext = pos_ext[0].shape[0]
+    use_sym = cfg.symmetric_gather and seqs[0].shape[0] >= _SYM_MIN_LOCAL_ROWS
+    packed = None
+    if use_sym and n_ext <= cfg.packed_gather_max_nodes:
+        # layer 0's f32 sender projections, halo-exchanged, ride the packed
+        # gather over the ext rows with the sender positions and the reverse
+        # index; receivers and senders are both ext rows, so the band needs
+        # no halo offset there
+        d = xs[0].shape[-1]
+        proj0 = []
+        for sim, x in zip(sims, xs):
+            (_, w_j0, _), _ = split_first_layer(sim._encode_process_decode._processor.gnn_stacks[0].edge_fn[0],
+                                                (d, d, d))
+            proj0.append(x @ w_j0)
+        packed = [packed_sym_gather(p, t, g[0].senders, g[0].mask, dtype, cfg.band_nodes)
+                  for p, t, g in zip(pos_ext, _halo_exchange(proj0, halo, devices), graphs)]
+    es, degrees, gathers, xj0 = [], [], [], None if packed is None else []
+    for s, sim in enumerate(sims):
+        n_local = seqs[s].shape[0]
+        nl_ext, nl = graphs[s]
+        lo, hi = halo * k, (halo + n_local) * k
+        if packed is not None:
+            g_aux, xj_all, rev_pos, rev_ok = packed[s]
+            sender_pos = g_aux[lo:hi].reshape(n_local, k, -1)
+            xj0.append(xj_all[lo:hi])
+        else:
+            sender_pos = pos_ext[s][nl.senders]
+        ef = edge_features_from(sender_pos, lasts[s], nl.mask, r)  # sender positions from the ext array
         deg = nl.mask.sum(dim=-1, keepdim=True).float()
-        x, e = encode_flat(sim._encode_process_decode, nf, ef.reshape(n_local * k, -1), deg, k, dtype)
+        e = mlp_ln_apply(sim._encode_process_decode._encoder.edge_fn, ef.reshape(n_local * k, -1))
+        e = e * _slot_mask(deg, n_local, k)
         rev = None
-        if cfg.symmetric_gather and n_local >= _SYM_MIN_LOCAL_ROWS:
+        if use_sym:
             # the reverse index over every ext row, kept to the reverses in
             # this shard's edge table; the rest reach their owners through
             # the halo exchange's backward
-            rev_pos, rev_ok = reverse_edge_positions(nl_ext.senders, nl_ext.mask)
-            lo, hi = halo * k, (halo + n_local) * k
+            if packed is None:
+                rev_pos, rev_ok = reverse_edge_positions(nl_ext.senders, nl_ext.mask)
             rev_ok = rev_ok & (rev_pos >= lo) & (rev_pos < hi)
             rev = (torch.where(rev_ok, rev_pos - lo, 0), rev_ok)
-        xs.append(x)
-        es.append(e)
+        es.append(e if dtype is None else e.to(dtype))
         degrees.append(deg)
-        gathers.append(sender_gather(nl.senders.reshape(-1), pos_ext[s].shape[0], rev))
+        gathers.append(sender_gather(nl.senders.reshape(-1), n_ext, rev, cfg.band_nodes, halo))
 
     def gather(proj_js: List[torch.Tensor]) -> List[torch.Tensor]:
         # the projections arrive in the compute dtype: bf16 halos ship half the bytes
         return [g(t) for g, t in zip(gathers, _halo_exchange(proj_js, halo, devices))]
 
-    preds = _process_decode([sim._encode_process_decode for sim in sims], xs, es, degrees, k, gather, dtype)
+    preds = _process_decode([sim._encode_process_decode for sim in sims], xs, es, degrees, k, gather, dtype,
+                            xj0=xj0, remat=cfg.remat)
     return preds, violations
 
 
@@ -321,7 +364,7 @@ def _build_forward(mesh: Mesh, cfg: SimulatorConfig, stats: NormStats, spec: Par
     [N_total], node_mask [N_total]) -> (norm_acc [N_total, dim], strain
     [N_total], halo_violations)``: global inputs and outputs on the mesh's
     first device, one module per shard (``mesh.Replicas``)."""
-    refuse_capacity_knobs(cfg)
+    check_remat(cfg.remat)
     devices = mesh.graph_devices
     if len(devices) != spec.num_shards:
         raise ValueError(f"the plan has {spec.num_shards} shards, the mesh's graph axis {len(devices)}")

@@ -67,6 +67,7 @@ COUNTERS = [
     (row_gather, "LAUNCHES"),
     (row_gather, "BWD_LAUNCHES"),
     (sym_gather, "BWD_CALLS"),
+    (sym_gather, "BANDED"),
 ]
 MAX_CACHED = 4  # captured steps kept per module; the least recently used goes first
 

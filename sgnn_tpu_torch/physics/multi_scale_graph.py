@@ -17,8 +17,10 @@ deformation):
   * per-scale mesh2mesh radius graphs over the sampled positions, r =
     scale spacing * radius_multiplier, remapped to global grid indices.
 
-The radius search is scipy's cKDTree (the JAX module's fallback branch;
-its native C++ search gives the same edges). Arrays are numpy; the
+The radius search is the port's native C++ cell list
+(``sgnn_tpu_torch/native``, built with ``g++`` at first use) and scipy's
+cKDTree where it cannot be built, as JAX's module chooses; both give the
+same edges, and the first graph a process builds prints which one ran. Arrays are numpy; the
 simulator moves them to the device once per trajectory. ``PaddedEdges``
 also carries the sender order (``sender_order``), built here once per
 trajectory, which the port's deterministic sender-gather backward reads.
@@ -31,6 +33,8 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 from scipy.spatial import cKDTree
+
+from sgnn_tpu_torch import native
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +75,28 @@ class CooEdges(NamedTuple):
     receivers: np.ndarray  # [E]
 
 
+_ANNOUNCED = False
+
+
 def _radius_edges(positions: np.ndarray, r: float, max_neighbors: int) -> CooEdges:
     """Radius graph: strict < r, self loops, per-receiver cap keeping the
-    lowest sender indices. Edge = (sender j, receiver i), j within r of i."""
+    lowest sender indices. Edge = (sender j, receiver i), j within r of i.
+    The native search where it builds, else cKDTree (``native.LAST_SEARCH``
+    says which ran)."""
+    global _ANNOUNCED
+    res = native.radius_search_host(positions, r, max_neighbors)
+    native.LAST_SEARCH = "ckdtree" if res is None else "native"
+    if not _ANNOUNCED:
+        _ANNOUNCED = True
+        where = "" if res is None else f" ({native.library_path().name})"
+        print(f"multi-scale graph: radius search {native.LAST_SEARCH}{where}")
+    if res is not None:
+        return CooEdges(res[0], res[1])
+    return _radius_edges_ckdtree(positions, r, max_neighbors)
+
+
+def _radius_edges_ckdtree(positions: np.ndarray, r: float, max_neighbors: int) -> CooEdges:
+    """The cKDTree form of ``_radius_edges`` (the JAX module's fallback)."""
     tree = cKDTree(positions)
     senders, receivers = [], []
     for i, nbrs in enumerate(tree.query_ball_point(positions, r)):

@@ -30,14 +30,20 @@ from sgnn_tpu_torch.models.encode_process_decode import (
     EPDConfig,
     encode_process_decode_apply,
 )
-from sgnn_tpu_torch.models.epd_flat import encode_process_decode_apply_flat, flatten_batch_graph
+from sgnn_tpu_torch.models.epd_flat import (
+    check_remat,
+    edge_features_from,
+    encode_process_decode_apply_flat,
+    encode_process_decode_apply_flat_fused,
+    flatten_batch_graph,
+)
 from sgnn_tpu_torch.nn.core import Embedding
 from sgnn_tpu_torch.ops.neighbors import (
     NeighborList,
     radius_neighbors,
     radius_neighbors_grid_batched,
 )
-from sgnn_tpu_torch.ops.sym_gather import reverse_edge_positions
+from sgnn_tpu_torch.ops.sym_gather import band_violations, reverse_edge_positions
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -98,9 +104,27 @@ class SimulatorConfig:
     domain: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
     # max occupants read per search cell; must cover the densest cell
     cell_capacity: int = 8
-    # capacity knobs of the JAX package, not ported: set, forward_batched
-    # raises (banded gathers and rematerialisation, ROADMAP.md Queue A item 7)
+    # the search of compute_neighbors: 'auto' (the cell list when a domain
+    # is given, else brute force) | 'grid' | 'bruteforce'
+    neighbor_method: str = "auto"
+    # max |sender - receiver| node index distance of a spatially sorted
+    # ordering: gathers past JAX's table thresholds take the banded index
+    # (ops/sym_gather.py); forward_batched(return_aux=True) counts the
+    # edges that break it. None = off
     band_nodes: Optional[int] = None
+    # node count up to which a symmetric graph takes the packed gather
+    # (ops/sym_gather.packed_sym_gather); above it the reverse index is
+    # built apart and the unfused route runs, as in JAX. The two routes
+    # are bit-equal. On an H100 (80GB HBM3, 700 W; chip_smoke.py phase
+    # 12) the packed route's captured training step was faster at every
+    # size timed: 25.09 / 25.51 ms at 77,824 nodes, 180.0 / 183.0 at
+    # 614,400 and 354.8 / 360.8 at 1,228,800 (packed / unfused, bf16,
+    # K = 8). No crossover was found, so the ceiling is the largest size
+    # timed. JAX's 800,000 is its TPU compiler's single-buffer ceiling,
+    # which the take kernel does not have.
+    packed_gather_max_nodes: int = 1_228_800
+    # rematerialisation of the processor layers in the backward:
+    # False | True ("xj") | "xj_msg" | "full" | "group" (models/epd_flat.py)
     remat: object = False
 
     @property
@@ -185,6 +209,7 @@ def compute_neighbors(
         max_neighbors=cfg.slots,
         node_mask=node_mask,
         domain=cfg.domain,
+        method=cfg.neighbor_method,
         cell_capacity=cfg.cell_capacity,
     )
 
@@ -206,9 +231,7 @@ def _edge_features(
     """[N, K, dim+1]: (p_sender - p_receiver)/R and its norm, masked. The
     senders index ``table`` (default: ``last``; a graph shard's extended
     array, ``parallel/edge_partition.py``)."""
-    disp = ((last if table is None else table)[nl.senders] - last[:, None, :]) / radius
-    dist = torch.linalg.vector_norm(disp, dim=-1, keepdim=True)
-    return torch.cat([disp, dist], dim=-1) * nl.mask[..., None].to(disp.dtype)
+    return edge_features_from((last if table is None else table)[nl.senders], last, nl.mask, radius)
 
 
 def encoder_preprocess(
@@ -265,14 +288,6 @@ def predict_positions(
     return next_positions, pred[:, -1]
 
 
-def refuse_capacity_knobs(cfg: SimulatorConfig) -> None:
-    """Raise for the capacity knobs the port does not have yet."""
-    if cfg.band_nodes is not None or cfg.remat:
-        raise NotImplementedError(
-            "band_nodes and remat are not ported yet (ROADMAP.md, Queue A item 7: capacity knobs)"
-        )
-
-
 def forward_batched(
     sim: LearnedSimulator,
     cfg: SimulatorConfig,
@@ -280,24 +295,32 @@ def forward_batched(
     position_sequences: torch.Tensor,  # [B, N, S, dim]
     particle_types: torch.Tensor,  # [B, N]
     node_mask: Optional[torch.Tensor] = None,  # [B, N]
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    return_aux: bool = False,
+):
     """Batch forward through the flat block-diagonal model.
 
     With a spatial domain the radius search runs batched-flat (one
     cell-list search over all graphs); without one, each graph is
-    preprocessed on its own (brute-force search) and flattened.
-    With ``cfg.symmetric_gather`` and a domain, the sender gathers take
-    the reverse-edge index built from the neighbour lists (the JAX
-    module's unfused route; its packed fusion is not ported).
-    Returns (normalized accelerations [B, N, dim], strain [B, N]).
+    preprocessed on its own (brute-force search) and flattened. With
+    ``cfg.symmetric_gather`` and a domain, the sender gathers take the
+    reverse-edge index: up to ``cfg.packed_gather_max_nodes`` nodes through
+    the packed gather (edge features, reverse index and layer 0's senders
+    in one gather, ``encode_process_decode_apply_flat_fused``), above it
+    built apart for the unfused route, as JAX routes. ``cfg.band_nodes``
+    and ``cfg.remat`` reach every gather and layer.
+    Returns (normalized accelerations [B, N, dim], strain [B, N]), and with
+    ``return_aux=True`` a third item ``{"band_violations": count}``
+    (``ops/sym_gather.band_violations``, 0 without a band; a device
+    tensor).
     """
-    refuse_capacity_knobs(cfg)
+    check_remat(cfg.remat)
     b, n = position_sequences.shape[:2]
     dev = position_sequences.device
     if node_mask is None:
         node_mask = torch.ones((b, n), dtype=torch.bool, device=dev)
     k = cfg.slots
     rev = None
+    dtype = cfg.torch_compute_dtype
     if cfg.domain is not None:
         last = position_sequences[..., -1, :]
         nl = radius_neighbors_grid_batched(
@@ -309,13 +332,21 @@ def forward_batched(
             node_mask=node_mask,
             cell_capacity=cfg.cell_capacity,
         )
+        senders, mask = nl.senders, nl.mask  # [B*N, K] global flat indices
         nf = _node_features_batched(sim, cfg, stats, position_sequences, particle_types)
         nf = nf.reshape(b * n, -1)
-        ef = _edge_features(last.reshape(b * n, -1), nl, cfg.connectivity_radius)
-        senders_flat = nl.senders.reshape(-1)
-        degrees = nl.mask.sum(dim=-1, keepdim=True).float()
+        flat_last = last.reshape(b * n, -1)
+        if cfg.symmetric_gather and b * n <= cfg.packed_gather_max_nodes:
+            pred = encode_process_decode_apply_flat_fused(
+                sim._encode_process_decode, nf, flat_last, senders, mask, cfg.connectivity_radius,
+                compute_dtype=dtype, band_nodes=cfg.band_nodes, remat=cfg.remat,
+            ).reshape(b, n, -1)
+            return _with_aux((pred[..., : cfg.dim], pred[..., -1]), cfg, senders, mask, return_aux)
+        ef = _edge_features(flat_last, nl, cfg.connectivity_radius)
+        senders_flat = senders.reshape(-1)
+        degrees = mask.sum(dim=-1, keepdim=True).float()
         if cfg.symmetric_gather:
-            rev = reverse_edge_positions(nl.senders, nl.mask)
+            rev = reverse_edge_positions(senders, mask)
     else:
         per_graph = [
             encoder_preprocess(sim, cfg, stats, position_sequences[i], particle_types[i], node_mask[i])
@@ -333,10 +364,23 @@ def forward_batched(
         senders_flat,
         degrees,
         k,
-        compute_dtype=cfg.torch_compute_dtype,
+        compute_dtype=dtype,
         rev=rev,
+        band_nodes=cfg.band_nodes,
+        remat=cfg.remat,
     ).reshape(b, n, -1)
-    return pred[..., : cfg.dim], pred[..., -1]
+    return _with_aux((pred[..., : cfg.dim], pred[..., -1]), cfg, senders, mask, return_aux)
+
+
+def _with_aux(out: tuple, cfg: SimulatorConfig, senders: torch.Tensor, mask: torch.Tensor, return_aux: bool):
+    """``out``, plus the guard metrics where asked for."""
+    if not return_aux:
+        return out
+    if cfg.band_nodes is None:
+        viol = torch.zeros((), dtype=torch.int64, device=senders.device)
+    else:
+        viol = band_violations(senders, mask, cfg.band_nodes)
+    return out + ({"band_violations": viol},)
 
 
 def predict_accelerations(
@@ -368,14 +412,17 @@ def predict_accelerations_batched(
     position_sequences: torch.Tensor,  # [B, N, S, dim]
     particle_types: torch.Tensor,  # [B, N]
     node_mask: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return_aux: bool = False,
+):
     """Batched training forward through the flat model (the contract of
-    ``predict_accelerations``)."""
+    ``predict_accelerations``); with ``return_aux=True`` a fourth item,
+    ``forward_batched``'s guard metrics."""
     noisy = position_sequences + position_sequence_noise
-    pred_acc, pred_strain = forward_batched(sim, cfg, stats, noisy, particle_types, node_mask)
+    out = forward_batched(sim, cfg, stats, noisy, particle_types, node_mask, return_aux=return_aux)
     next_adjusted = next_positions + position_sequence_noise[..., -1, :]
     target_acc = inverse_decoder_postprocess(stats, next_adjusted, noisy)
-    return pred_acc, target_acc, pred_strain
+    res = (out[0], target_acc, out[1])
+    return res + (out[2],) if return_aux else res
 
 
 def predict_positions_flat(

@@ -44,7 +44,16 @@ by default that many distinct CUDA devices, ``parallel/mesh.make_mesh``):
     guard fires).
 
 With every replica or shard on one device, the step is captured as one
-CUDA graph. The graph audit is not ported yet (ROADMAP.md, Queue A item 8).
+CUDA graph.
+
+The capacity knobs reach the model through the config: ``remat`` (the
+layers' recomputation in the backward, ``models/epd_flat.py``) and
+``band_nodes`` (the banded gathers, ``ops/sym_gather.py``). With a band the
+loss adds ``train/band_violations`` (edges that broke it, counted inside
+the captured step; a graph-parallel step folds them into its halo guard,
+which rejects the step), and the trainer warns at a log point where it is
+above 0. ``debug_graph: true`` audits the first training sample's graph
+before training (``utils/graph_debug.audit_neighbor_list``).
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ import torch
 
 from sgnn_tpu_torch.data.loader import SampleBatcher, TrajectoryLoader, load_metadata
 from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
+from sgnn_tpu_torch.models.epd_flat import check_remat
 from sgnn_tpu_torch.parallel.data_parallel import DataParallelStep
 from sgnn_tpu_torch.parallel.edge_partition import (
     PartitionedTrainStep,
@@ -78,6 +88,7 @@ from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
     NormStats,
     SimulatorConfig,
+    compute_neighbors,
     make_norm_stats,
     predict_accelerations_batched,
     simulator_init,
@@ -88,6 +99,7 @@ from sgnn_tpu_torch.train.config import TrainConfig, load_config
 from sgnn_tpu_torch.train.loss import one_step_loss
 from sgnn_tpu_torch.train.metrics import MetricLogger
 from sgnn_tpu_torch.utils.device import Device, resolve_device
+from sgnn_tpu_torch.utils.graph_debug import audit_neighbor_list
 from sgnn_tpu_torch.utils.resource_monitor import ResourceMonitor
 
 ADAM_BETAS = (0.9, 0.999)
@@ -107,6 +119,7 @@ def simulator_config_from(cfg: TrainConfig, metadata: dict) -> SimulatorConfig:
         # rounded to 8 or the next multiple of 4, as the JAX trainer does
         slots = min(max_neighbors, int(max_degree) + 2)
         slots = min(max_neighbors, 8 if slots <= 8 else -(-slots // 4) * 4)
+    check_remat(cfg.remat)
     symmetric = cfg.symmetric_gather
     if symmetric is None:
         # the JAX trainer's rule: on with bf16 edge latents, when the cap
@@ -172,16 +185,24 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[
 def make_loss_fn(sim: LearnedSimulator, sim_cfg: SimulatorConfig, stats: NormStats, cfg: TrainConfig) -> Callable:
     """The loss ``(batch, noise, denom=None) -> (loss, aux)`` of ``sim`` on a
     ``[B, N, ...]`` batch: every term a masked sum over ``denom`` (default:
-    the batch's masked count; a data-parallel replica gets the global one)."""
+    the batch's masked count; a data-parallel replica gets the global one).
+    With ``band_nodes`` set, aux adds ``train/band_violations``."""
+
+    banded = sim_cfg.band_nodes is not None
 
     def loss_fn(batch, noise, denom=None):
-        pred_acc, target_acc, pred_strain = predict_accelerations_batched(
+        out = predict_accelerations_batched(
             sim, sim_cfg, stats, batch["next_position"], noise, batch["positions"],
-            batch["particle_type"], batch["node_mask"],
+            batch["particle_type"], batch["node_mask"], return_aux=banded,
         )
-        return one_step_loss(pred_acc, target_acc, pred_strain, batch["next_strain"], batch["node_mask"],
-                             weight_position=cfg.loss_weight_position, weight_strain=cfg.loss_weight_strain,
-                             denom=denom)
+        loss, aux = one_step_loss(*out[:3], batch["next_strain"], batch["node_mask"],
+                                  weight_position=cfg.loss_weight_position, weight_strain=cfg.loss_weight_strain,
+                                  denom=denom)
+        if banded:
+            # the banded gathers' contract (ops/sym_gather.band_violations):
+            # above 0, the node ordering decayed past band_nodes this step
+            aux["train/band_violations"] = out[3]["band_violations"]
+        return loss, aux
 
     return loss_fn
 
@@ -295,6 +316,17 @@ def build_training(
     return Training(sim, sim_cfg, stats, optimizer, step_fn, batcher, mesh, spec)
 
 
+def audit_first_sample(batcher: SampleBatcher, sim_cfg: SimulatorConfig, radius: float) -> dict:
+    """The connectivity audit (``utils/graph_debug.audit_neighbor_list``)
+    of the first sample's graph, on the CPU, before training: JAX's
+    ``debug_graph``."""
+    sample = next(iter(batcher))
+    pos0 = sample["positions"][0, :, -1]
+    m0 = sample["node_mask"][0]
+    nl0 = compute_neighbors(sim_cfg, torch.from_numpy(np.asarray(pos0)), torch.from_numpy(np.asarray(m0)))
+    return audit_neighbor_list(pos0, nl0, radius, node_mask=m0)
+
+
 def make_rollout(
     sim_cfg: SimulatorConfig, stats: NormStats, mode: str, device: torch.device
 ) -> Callable:
@@ -365,8 +397,6 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
     ``{"step", "lowest_eval_loss"}``."""
     dev = resolve_device(device)
     check_parallel(cfg)
-    if cfg.debug_graph:
-        raise NotImplementedError("debug_graph is not ported yet (ROADMAP.md, Queue A item 8)")
     inner = max(1, int(cfg.inner_steps))
     for name in ("log_every", "nsave_steps", "ntraining_steps"):
         if getattr(cfg, name) % inner:
@@ -406,6 +436,9 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
         f"steps={cfg.ntraining_steps} device={dev}"
     )
 
+    if cfg.debug_graph:
+        audit_first_sample(built.batcher, sim_cfg, cfg.connection_radius)
+
     logger = MetricLogger(ckpt_dir, use_wandb=cfg.log, project=cfg.project_name, run_name=cfg.run_name)
     source = DevicePrefetcher(built.epochs(), depth=PREFETCH_DEPTH, device=dev)
     interrupted = False
@@ -440,6 +473,11 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
                 # a plan the geometry outgrew for good rejects every step: abort
                 # after REJECTION_LIMIT consecutive rejected log points
                 rejection_tracker.update(metrics.get("train/halo_rejected", 0) > 0)
+                if metrics.get("train/band_violations", 0) > 0:
+                    print(
+                        "  WARNING: banded-gather contract violations this step — node ordering decayed "
+                        "past band_nodes; this step's gathers were inexact (sym_gather.band_violations)"
+                    )
 
             if step % cfg.nsave_steps == 0 and step > 0:
                 print(f"validating at step {step}...")

@@ -921,3 +921,78 @@ def test_two_process_nccl_dp_step_matches_one_process(cuda, tmp_path):
     from test_torch_port_multihost import two_process_check
 
     two_process_check(tmp_path, device="cuda")
+
+
+# --- the capacity knobs on the card ---------------------------------------------------
+
+
+def _knob_batch(device, cfg, b=2, seed=4):
+    """A drifting-lattice batch of b graphs for forward_batched."""
+    import numpy as np
+
+    pos = _drifting_lattice(18, cfg.input_sequence_length, seed=seed)
+    seq = torch.as_tensor(np.stack([pos] * b), device=device)
+    types = torch.zeros(seq.shape[:2], dtype=torch.long, device=device)
+    return seq, types
+
+
+def _grads_of(sim, cfg, stats, seq, types):
+    from sgnn_tpu_torch.physics.simulator import forward_batched
+
+    sim.zero_grad()
+    acc, strain = forward_batched(sim, cfg, stats, seq, types)
+    (acc.float().square().sum() + strain.float().square().sum()).backward()
+    return [acc.detach(), strain.detach()] + [p.grad.clone() for p in sim.parameters()]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_remat_modes_are_bit_equal_on_the_card(cuda, compute_dtype):
+    """Every remat mode's outputs and gradients torch.equal to remat=False,
+    on the kernels (edge block forward and backward, take kernel)."""
+    import dataclasses
+
+    sim, cfg, stats, _ = _single_scale(cuda, compute_dtype)
+    seq, types = _knob_batch(cuda, cfg)
+    ref = _grads_of(sim, cfg, stats, seq, types)
+    for mode in (True, "xj_msg", "full", "group"):
+        got = _grads_of(sim, dataclasses.replace(cfg, remat=mode), stats, seq, types)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), mode
+
+
+def test_packed_route_equals_unfused_on_the_card(cuda):
+    """B's packed gather (the take kernel over the padded f32 table) against
+    the unfused symmetric route: outputs and gradients torch.equal."""
+    import dataclasses
+
+    sim, cfg, stats, _ = _single_scale(cuda, "bfloat16")
+    assert cfg.symmetric_gather
+    seq, types = _knob_batch(cuda, cfg)
+    before = rg.LAUNCHES["take"]
+    got = _grads_of(sim, cfg, stats, seq, types)
+    assert rg.LAUNCHES["take"] == before + 1  # the packed gather
+    ref = _grads_of(sim, dataclasses.replace(cfg, packed_gather_max_nodes=1), stats, seq, types)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_banded_index_gathers_equal_plain_on_the_card(cuda):
+    """The banded index built on the card equals the one built on the CPU,
+    and gathers JAX's clamped rows: table[idx] where the band holds, the
+    window's clamp where it breaks (both checked against the CPU)."""
+    from sgnn_tpu_torch.ops import sym_gather as sg
+
+    g = torch.Generator().manual_seed(0)
+    n, k, w = 300_000, 8, 40
+    send = (torch.arange(n)[:, None] + torch.randint(-w, w + 1, (n, k), generator=g)).clamp(0, n - 1)
+    bad = send.clone()
+    bad.view(-1)[torch.randint(0, n * k, (50,), generator=g)] = torch.randint(0, n, (50,), generator=g)
+    table = torch.randn(n, 64, generator=g)
+    for ids in (send, bad):
+        cpu = sg.forward_banded_index(ids.reshape(-1), n, w)
+        assert cpu is not None  # 300k rows fanned out 8x: the banded route
+        card = sg.forward_banded_index(ids.reshape(-1).to(cuda), n, w)
+        assert torch.equal(card.cpu(), cpu)
+        out = rg.row_gather_take(table.to(cuda), card)
+        assert torch.equal(out.cpu(), table[cpu])
+    assert torch.equal(sg.forward_banded_index(send.reshape(-1), n, w), send.reshape(-1))

@@ -111,7 +111,26 @@ def test_the_walk_reaches_every_new_module():
             "sgnn_tpu_torch/models/multi_scale.py", "sgnn_tpu_torch/train/train_multi_scale.py",
             "sgnn_tpu_torch/data/static_graph_loader.py", "sgnn_tpu_torch/physics/multi_scale_simulator.py",
             "sgnn_tpu_torch/parallel/mesh.py", "sgnn_tpu_torch/parallel/multihost.py",
-            "sgnn_tpu_torch/parallel/data_parallel.py", "sgnn_tpu_torch/parallel/edge_partition.py"} <= names
+            "sgnn_tpu_torch/parallel/data_parallel.py", "sgnn_tpu_torch/parallel/edge_partition.py",
+            "sgnn_tpu_torch/utils/graph_debug.py", "sgnn_tpu_torch/utils/profiling.py",
+            "sgnn_tpu_torch/utils/torch_import.py", "sgnn_tpu_torch/data/lsdyna_parser.py",
+            "sgnn_tpu_torch/native/__init__.py", "sgnn_tpu_torch/native/build.py",
+            "sgnn_tpu_torch/viz/render_rollout.py", "sgnn_tpu_torch/scripts/parity_vs_checkpoint.py"} <= names
+
+
+def test_parity_driver_needs_cuda_without_a_device(no_cuda, tmp_path):
+    from sgnn_tpu_torch.scripts import parity_vs_checkpoint
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parity_vs_checkpoint.main(["--checkpoint", str(tmp_path / "c.npz"), "--input", str(tmp_path / "i.npz")])
+
+
+def test_native_library_is_built_by_the_port_not_loaded_from_jax():
+    from sgnn_tpu_torch import native
+
+    assert native.SOURCE == REPO / "sgnn_tpu_torch" / "native" / "radius_search.cc"
+    assert native.library_path().parent == REPO / "build" / "native"
+    assert native.library_path().name.startswith("libradius_search-")
 
 
 def test_resolve_device_passes_explicit_choices():

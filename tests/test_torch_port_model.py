@@ -156,14 +156,22 @@ def test_flat_forward_bf16_matches_jax_default_route(rng, latent):
     assert 0.0 < gap and err <= BF16_GAP_FACTOR * gap, (err, gap)
 
 
-def test_flat_forward_refuses_deeper_edge_mlps():
-    cfg = tepd.EPDConfig(node_in=5, edge_in=3, node_out=3, latent_dim=16,
-                         num_message_passing_steps=1, num_mlp_layers=2)
-    epd = tepd.EncodeProcessDecode(cfg)
-    with pytest.raises(NotImplementedError):
+def test_flat_forward_refuses_deeper_edge_mlps(rng):
+    """Deeper edge MLPs (num_mlp_layers = 2) no longer raise: they take the
+    plain edge stage, held to JAX's XLA route (use_pallas=False), and a
+    remat value JAX does not know is refused."""
+    b, n, k = 2, 32, 8
+    cfg = jepd.EPDConfig(node_in=5, edge_in=3, node_out=3, latent_dim=16,
+                         num_message_passing_steps=2, num_mlp_layers=2)
+    params = jepd.encode_process_decode_init(jax.random.key(3), cfg)
+    senders, mask, nf, ef = _flat_inputs(rng, b, n, k, cfg)
+    want = _jax_flat(params, senders, mask, nf, ef, n, k, False)
+    epd = port_epd(params, cfg)
+    np.testing.assert_allclose(_port_flat(epd, senders, mask, nf, ef, n, k), want, **TOL)
+    with pytest.raises(ValueError, match="remat"):
         tflat.encode_process_decode_apply_flat(
             epd, torch.zeros(4, 5), torch.zeros(8, 3), torch.zeros(8, dtype=torch.long),
-            torch.full((4, 1), 2.0), 2,
+            torch.full((4, 1), 2.0), 2, remat="sometimes",
         )
 
 

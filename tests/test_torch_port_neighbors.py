@@ -108,6 +108,37 @@ def test_dispatcher_picks_by_domain(rng):
         tnb.radius_neighbors(pos, R, method="kdtree")
 
 
+@pytest.mark.parametrize("method", ["auto", "grid", "bruteforce"])
+def test_simulator_neighbor_method_matches_jax(rng, method, monkeypatch):
+    """SimulatorConfig.neighbor_method chooses compute_neighbors' search as
+    JAX's does: with a domain, 'auto' and 'grid' take the cell list and
+    'bruteforce' the brute force; the edges equal JAX's; without a domain
+    'grid' raises, as does a method neither package knows."""
+    import dataclasses
+
+    from sgnn_tpu.physics import simulator as jsim
+    from sgnn_tpu_torch.physics import simulator as tsim
+
+    used = []
+    brute = tnb.radius_neighbors_bruteforce
+
+    def counted(*a, **kw):
+        used.append("bruteforce")
+        return brute(*a, **kw)
+
+    monkeypatch.setattr(tnb, "radius_neighbors_bruteforce", counted)
+    pos = _cloud(rng, 60, 3.0)
+    domain = ((-1.0, -1.0), (4.0, 4.0))
+    tcfg = tsim.SimulatorConfig(connectivity_radius=R, max_neighbors=12, domain=domain, neighbor_method=method)
+    jcfg = jsim.SimulatorConfig(connectivity_radius=R, max_neighbors=12, domain=domain, neighbor_method=method)
+    _equal(tsim.compute_neighbors(tcfg, torch.from_numpy(pos)), jsim.compute_neighbors(jcfg, jnp.asarray(pos)))
+    assert used == (["bruteforce"] if method == "bruteforce" else [])
+    with pytest.raises(ValueError):
+        tsim.compute_neighbors(dataclasses.replace(tcfg, domain=None, neighbor_method="grid"), torch.from_numpy(pos))
+    with pytest.raises(ValueError):
+        tsim.compute_neighbors(dataclasses.replace(tcfg, neighbor_method="kdtree"), torch.from_numpy(pos))
+
+
 def test_rows_are_prefix_compacted_with_self_padding(rng):
     nl = tnb.radius_neighbors_bruteforce(torch.from_numpy(_cloud(rng, 80, 3.0)), R, max_neighbors=10)
     mask = nl.mask.numpy()

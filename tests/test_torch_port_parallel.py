@@ -531,10 +531,14 @@ def test_train_graph_parallel_config_errors(tiny_env):
 
 
 def test_capacity_knobs_raise_as_on_one_device():
+    """The capacity knobs build a partitioned forward now; a remat value
+    that the one-device forward refuses is refused here too, as is a plan
+    whose shards the mesh does not have."""
     _, tcfg, _, tstats, _, _, _ = setup()
     spec = tep.PartitionSpec1D(2, 64, 8)
-    for kw in (dict(band_nodes=64), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            tep.make_partitioned_forward(cpu_mesh(2), dataclasses.replace(tcfg, **kw), tstats, spec)
+    for kw in (dict(band_nodes=64), dict(remat=True), dict(remat="group")):
+        tep.make_partitioned_forward(cpu_mesh(2), dataclasses.replace(tcfg, **kw), tstats, spec)
+    with pytest.raises(ValueError, match="remat"):
+        tep.make_partitioned_forward(cpu_mesh(2), dataclasses.replace(tcfg, remat="half"), tstats, spec)
     with pytest.raises(ValueError, match="2 shards"):
         tep.make_partitioned_forward(cpu_mesh(4), tcfg, tstats, spec)

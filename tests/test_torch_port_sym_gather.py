@@ -84,8 +84,32 @@ def test_sym_gather_grad_equals_jax_and_index_select(rng, dtype):
         torch.testing.assert_close(t2.grad, plain, rtol=1e-6, atol=1e-6)
 
 
-def test_banded_gather_is_not_ported(rng):
-    senders, mask = symmetric_graph(rng, n=20, k=24)
-    tp, tok = tsg.reverse_edge_positions(torch.from_numpy(senders), torch.from_numpy(mask))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tsg.sym_gather(torch.zeros(20, 4), torch.from_numpy(senders.reshape(-1)).long(), tp, tok, band_nodes=8)
+def test_banded_gather_is_not_ported(rng, monkeypatch):
+    """The banded gathers are ported now: with band_nodes and the
+    thresholds forced down, sym_gather's output and gradient equal the
+    unbanded ones on an index-local graph, and the banded route ran."""
+    n, k, h = 512, 8, 16
+    pos = np.stack([np.arange(n) * 0.01, np.zeros(n)], -1).astype(np.float32)  # x-sorted line
+    nl = radius_neighbors_bruteforce(jnp.asarray(pos), 0.035, max_neighbors=k)
+    senders, mask = torch.from_numpy(np.array(nl.senders)), torch.from_numpy(np.array(nl.mask))
+    tp, tok = tsg.reverse_edge_positions(senders, mask)
+    idx = senders.reshape(-1).long()
+    table = torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(n * k, h)).astype(np.float32)) * mask.reshape(-1, 1)
+
+    def run(band):
+        t = table.clone().requires_grad_(True)
+        out = tsg.sym_gather(t, idx, tp, tok, band_nodes=band)
+        out.backward(cot)
+        return out.detach(), t.grad
+
+    ref = run(None)
+    monkeypatch.setattr(tsg, "_BANDED_MIN_ROWS", 64)
+    monkeypatch.setattr(tsg, "_BANDED_TILE_ROWS", 512)
+    before = dict(tsg.BANDED)
+    got = run(20)
+    # the 512-row table fits one window, so the forward gathers plainly (as
+    # JAX's falls back); the 4,096-row reverse gather takes the banded index
+    assert tsg.BANDED == {"forward": before["forward"], "reverse": before["reverse"] + 1}
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
