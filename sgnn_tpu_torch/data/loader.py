@@ -17,6 +17,8 @@ from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from sgnn_tpu_torch.utils.profiling import trace_region
+
 Trajectory = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
 
@@ -27,8 +29,8 @@ def load_metadata(data_dir: str | Path) -> dict:
 
 def load_trajectories(path: str | Path) -> List[Trajectory]:
     """npz -> list of (positions [T,N,dim], types [N], stresses [T,N]),
-    sorted by case name."""
-    with np.load(path, allow_pickle=True) as data:
+    sorted by case name (span ``load.read``)."""
+    with trace_region("load.read"), np.load(path, allow_pickle=True) as data:
         trajectories = data["trajectories"].item()
     out = []
     for name in sorted(trajectories):
@@ -136,7 +138,8 @@ class TrajectoryLoader:
 
     Yields dicts of numpy arrays:
       positions f32[Np, T, dim], particle_type i32[Np], node_mask bool[Np],
-      strains f32[T, Np].
+      strains f32[T, Np]
+    (the padding of each: span ``load.pad``).
     """
 
     def __init__(self, path: str | Path, *, pad_multiple: int = 128):
@@ -149,16 +152,17 @@ class TrajectoryLoader:
 
     def __iter__(self):
         for pos, types, stress in self.trajectories:
-            t, n, dim = pos.shape
-            np_ = self.num_nodes
-            out = {
-                "positions": np.zeros((np_, t, dim), np.float32),
-                "particle_type": np.zeros((np_,), np.int32),
-                "node_mask": np.zeros((np_,), bool),
-                "strains": np.zeros((t, np_), np.float32),
-            }
-            out["positions"][:n] = np.transpose(pos, (1, 0, 2))
-            out["particle_type"][:n] = types
-            out["node_mask"][:n] = True
-            out["strains"][:, :n] = stress
+            with trace_region("load.pad"):
+                t, n, dim = pos.shape
+                np_ = self.num_nodes
+                out = {
+                    "positions": np.zeros((np_, t, dim), np.float32),
+                    "particle_type": np.zeros((np_,), np.int32),
+                    "node_mask": np.zeros((np_,), bool),
+                    "strains": np.zeros((t, np_), np.float32),
+                }
+                out["positions"][:n] = np.transpose(pos, (1, 0, 2))
+                out["particle_type"][:n] = types
+                out["node_mask"][:n] = True
+                out["strains"][:, :n] = stress
             yield out

@@ -23,6 +23,11 @@ batch's static graph) whose numpy leaves become tensors; other leaves pass
 through. A loader's error is raised by the ``__next__`` that reaches it;
 ``close()`` (or leaving the ``with`` block) stops the thread, also on an
 infinite stream.
+
+Spans (``utils/profiling.trace_region``, kept while a profile is active):
+``feed.build`` (the host iterator producing a batch) and ``feed.stage``
+(``_stage``) on the thread, ``feed.wait`` (the consumer's wait on the
+queue) in ``__next__``, each with the batch's sequence number ``seq``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from sgnn_tpu_torch.utils.profiling import trace_region
 
 _SENTINEL = object()
 CLOSE_TIMEOUT_S = 10.0  # close() waits this long for a batch being staged
@@ -85,6 +92,7 @@ class DevicePrefetcher:
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
         self._put = put or (lambda b: to_device(b, self._device, non_blocking=True))
+        self._taken = 0  # items the consumer has taken: the next batch's sequence number
         self._thread = threading.Thread(target=self._worker, args=(iter(iterable),), daemon=True)
         self._thread.start()
 
@@ -113,9 +121,17 @@ class DevicePrefetcher:
             if self._device.type == "cuda":
                 torch.cuda.set_device(self._device)
                 stream = torch.cuda.Stream(self._device)
-            for batch in it:
-                if not self._offer(self._stage(batch, stream)):
+            seq = 0
+            while True:
+                with trace_region("feed.build", seq=seq):
+                    batch = next(it, _SENTINEL)
+                if batch is _SENTINEL:
+                    break
+                with trace_region("feed.stage", seq=seq):
+                    staged = self._stage(batch, stream)
+                if not self._offer(staged):
                     return
+                seq += 1
         except Exception as e:  # surface loader errors to the consumer
             self._offer(e)
             return
@@ -125,7 +141,9 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with trace_region("feed.wait", seq=self._taken):
+            item = self._q.get()
+        self._taken += 1
         if item is _SENTINEL:
             raise StopIteration
         if isinstance(item, Exception):

@@ -24,6 +24,7 @@ from sgnn_tpu_torch.physics.multi_scale_graph import (
     dense_edges,
     pad_edges,
 )
+from sgnn_tpu_torch.utils.profiling import trace_region
 
 KEYS = ("grid2mesh_edges", "mesh2mesh_edges", "mesh2grid_edges")
 
@@ -81,29 +82,35 @@ def _build_graphs(
     padding. ``dense=True`` emits DenseStaticGraphs (receiver rows and
     slot widths padded to the split-wide maximum per edge type, per scale
     for m2m), ``False`` StaticGraphs (COO edges padded to a multiple of
-    ``edge_pad_multiple``), ``"auto"`` picks by ``_auto_dense``."""
-    raw = [create_all_edges(ms_cfg, pos[0]) for pos, _, _ in trajectories]
-    if dense == "auto":
-        dense = _auto_dense(raw, edge_pad_multiple, m2m_traversals, dense_row_advantage)
-    if not dense:
-        sizes = {k: _round_up(max(max(len(r[k].senders) for r in raw), 1), edge_pad_multiple) for k in KEYS}
-        return [StaticGraph(*(pad_edges(r[k], sizes[k]) for k in KEYS)) for r in raw]
+    ``edge_pad_multiple``), ``"auto"`` picks by ``_auto_dense``. Spans:
+    ``graph.search`` per ``create_all_edges`` call, ``graph.layout`` over
+    the layout's choice and padding."""
+    raw = []
+    for pos, _, _ in trajectories:
+        with trace_region("graph.search"):
+            raw.append(create_all_edges(ms_cfg, pos[0]))
+    with trace_region("graph.layout"):
+        if dense == "auto":
+            dense = _auto_dense(raw, edge_pad_multiple, m2m_traversals, dense_row_advantage)
+        if not dense:
+            sizes = {k: _round_up(max(max(len(r[k].senders) for r in raw), 1), edge_pad_multiple) for k in KEYS}
+            return [StaticGraph(*(pad_edges(r[k], sizes[k]) for k in KEYS)) for r in raw]
 
-    sz = {k: _dense_sizes([r[k] for r in raw]) for k in (KEYS[0], KEYS[2])}
-    num_m2m_scales = len(raw[0]["mesh2mesh_edges_per_scale"])
-    sz_m2m = [_dense_sizes([r["mesh2mesh_edges_per_scale"][s] for r in raw]) for s in range(num_m2m_scales)]
+        sz = {k: _dense_sizes([r[k] for r in raw]) for k in (KEYS[0], KEYS[2])}
+        num_m2m_scales = len(raw[0]["mesh2mesh_edges_per_scale"])
+        sz_m2m = [_dense_sizes([r["mesh2mesh_edges_per_scale"][s] for r in raw]) for s in range(num_m2m_scales)]
 
-    def de(e, s):
-        return dense_edges(e, num_nodes, s[0], s[1], tsp_rows_pad=s[2], tsp_slots=s[3])
+        def de(e, s):
+            return dense_edges(e, num_nodes, s[0], s[1], tsp_rows_pad=s[2], tsp_slots=s[3])
 
-    return [
-        DenseStaticGraph(
-            g2m=de(r[KEYS[0]], sz[KEYS[0]]),
-            m2m=tuple(de(e, s) for e, s in zip(r["mesh2mesh_edges_per_scale"], sz_m2m)),
-            m2g=de(r[KEYS[2]], sz[KEYS[2]]),
-        )
-        for r in raw
-    ]
+        return [
+            DenseStaticGraph(
+                g2m=de(r[KEYS[0]], sz[KEYS[0]]),
+                m2m=tuple(de(e, s) for e, s in zip(r["mesh2mesh_edges_per_scale"], sz_m2m)),
+                m2g=de(r[KEYS[2]], sz[KEYS[2]]),
+            )
+            for r in raw
+        ]
 
 
 def _stack_graphs(graphs):

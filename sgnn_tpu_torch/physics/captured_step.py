@@ -19,14 +19,18 @@ the trajectory's length and its capture costs one step:
     computes the new window first and then copies it over the old one (a
     shift of the window into itself would read what it had just written);
   * per step, outside the graph: the step's ground truth copied in (two
-    copies), one graph launch, the outputs copied out (two copies);
+    copies), one graph launch, the outputs copied out (two copies); the
+    host loop over the steps is the span ``rollout.replays``;
   * the first call on the card runs its first step eagerly on a side
     stream (the warm-up: the kernels are built, cuBLAS makes its handles
     and every cache is filled, so none of that happens under capture),
     then captures ``body`` (in the ``thread_local`` error mode: the
     trainers' validation captures while their prefetcher's thread pins and
     copies batches) and replays it for the other steps. A capture that
-    fails raises: nothing retreats to the eager loop;
+    fails raises: nothing retreats to the eager loop. The two are the
+    spans ``step.warmup`` and ``step.capture``, and ``CAPTURES`` counts
+    them (always on; ``physics/rollout`` and ``ms_rollout`` open the
+    request's root span ``rollout``);
   * on CPU tensors ``body`` runs eagerly on the same buffers, so the CPU
     tests drive the same code; ``roll(..., capture=False)`` is the eager
     loop, kept for comparisons;
@@ -58,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from sgnn_tpu_torch.ops import edge_block, row_gather, sym_gather
+from sgnn_tpu_torch.utils.profiling import trace_region
 
 # the kernels' launch counters, each an int or a dict of ints: (module, attribute)
 COUNTERS = [
@@ -70,6 +75,7 @@ COUNTERS = [
     (sym_gather, "BANDED"),
 ]
 MAX_CACHED = 4  # captured steps kept per module; the least recently used goes first
+CAPTURES = 0  # rollout steps captured (each after its eager warm-up step) in this process
 
 Step = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -198,13 +204,14 @@ class CapturedStep:
             pred_pos = gt_positions.new_empty(gt_positions.shape)
             pred_strain = gt_strains.new_empty(gt_strains.shape)
             extras = []
-            for t in range(gt_positions.shape[0]):
-                self.gt_pos.copy_(gt_positions[t])
-                self.gt_strain.copy_(gt_strains[t])
-                self._advance()
-                pred_pos[t].copy_(self.next_pos)
-                pred_strain[t].copy_(self.strain)
-                extras.append([e.clone() for e in self.extra])
+            with trace_region("rollout.replays", steps=gt_positions.shape[0]):
+                for t in range(gt_positions.shape[0]):
+                    self.gt_pos.copy_(gt_positions[t])
+                    self.gt_strain.copy_(gt_strains[t])
+                    self._advance()
+                    pred_pos[t].copy_(self.next_pos)
+                    pred_strain[t].copy_(self.strain)
+                    extras.append([e.clone() for e in self.extra])
             return (pred_pos, pred_strain, *(torch.stack(e) for e in zip(*extras)))
         finally:
             self._step = None
@@ -234,13 +241,16 @@ class CapturedStep:
             self.replays += 1
 
     def _warm_up_and_capture(self) -> None:
-        """This step eagerly on a side stream, then ``body`` captured."""
+        """This step eagerly on a side stream, then ``body`` captured
+        (spans ``step.warmup`` and ``step.capture``; counted in ``CAPTURES``)."""
+        global CAPTURES
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.body()
-        current.wait_stream(side)
+        with trace_region("step.warmup"):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.body()
+            current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
 
         def capture():  # thread_local: the training prefetcher's thread may stage a batch meanwhile
@@ -248,9 +258,11 @@ class CapturedStep:
                 self.body()
 
         t0 = time.perf_counter()
-        self.launches = LaunchRecord.around(capture)
+        with trace_region("step.capture"):
+            self.launches = LaunchRecord.around(capture)
         self.capture_seconds = time.perf_counter() - t0
         self.graph = graph
+        CAPTURES += 1
 
 
 _CACHE: "weakref.WeakKeyDictionary[torch.nn.Module, OrderedDict]" = weakref.WeakKeyDictionary()

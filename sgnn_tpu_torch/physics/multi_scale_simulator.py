@@ -59,6 +59,7 @@ from sgnn_tpu_torch.physics.simulator import (
     time_diff,
 )
 from sgnn_tpu_torch.utils.device import Device, resolve_device
+from sgnn_tpu_torch.utils.profiling import trace_region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,36 +322,38 @@ def ms_rollout(
     dev = resolve_device(device)
     if sim.device != dev:
         raise ValueError(f"simulator lives on {sim.device}, rollout asked for {dev}")
-    positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
-    particle_types = torch.as_tensor(particle_types, device=dev)
-    strains = torch.as_tensor(strains, dtype=torch.float32, device=dev)
-    if node_mask is not None:
-        node_mask = torch.as_tensor(node_mask, dtype=torch.bool, device=dev)
-    graph = graph_to(graph, dev)
+    with trace_region("rollout"):
+        with trace_region("rollout.inputs"):
+            positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
+            particle_types = torch.as_tensor(particle_types, device=dev)
+            strains = torch.as_tensor(strains, dtype=torch.float32, device=dev)
+            if node_mask is not None:
+                node_mask = torch.as_tensor(node_mask, dtype=torch.bool, device=dev)
+            graph = graph_to(graph, dev)
 
-    s = cfg.input_sequence_length
-    window = positions[:, :s]
-    gt_positions = positions[:, s:].transpose(0, 1)  # [T-S, N, dim]
-    gt_strains = strains[s:]
-    erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
+        s = cfg.input_sequence_length
+        window = positions[:, :s]
+        gt_positions = positions[:, s:].transpose(0, 1)  # [T-S, N, dim]
+        gt_strains = strains[s:]
+        erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
 
-    fixed = dict(particle_types=particle_types, erosional=erosional, graph=graph)
-    key = ("ms_rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
-    pred_positions, pred_strains = captured_step.roll(
-        ms_rollout_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
-        capture=capture, owner=sim, key=key,
-    )
-    return {
-        "initial_positions": positions[:, :s].transpose(0, 1),
-        "initial_strains": strains[:s],
-        "predicted_rollout": pred_positions,
-        "ground_truth_rollout": gt_positions,
-        "predicted_strain": pred_strains,
-        "ground_truth_strain": gt_strains,
-        "particle_types": particle_types,
-        "rmse_position": cumulative_rmse(pred_positions, gt_positions, node_mask),
-        "rmse_strain": cumulative_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
-        # the reference's multi-scale evaluator scores per step
-        "rmse_position_per_step": per_step_rmse(pred_positions, gt_positions, node_mask),
-        "rmse_strain_per_step": per_step_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
-    }
+        fixed = dict(particle_types=particle_types, erosional=erosional, graph=graph)
+        key = ("ms_rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
+        pred_positions, pred_strains = captured_step.roll(
+            ms_rollout_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
+            capture=capture, owner=sim, key=key,
+        )
+        return {
+            "initial_positions": positions[:, :s].transpose(0, 1),
+            "initial_strains": strains[:s],
+            "predicted_rollout": pred_positions,
+            "ground_truth_rollout": gt_positions,
+            "predicted_strain": pred_strains,
+            "ground_truth_strain": gt_strains,
+            "particle_types": particle_types,
+            "rmse_position": cumulative_rmse(pred_positions, gt_positions, node_mask),
+            "rmse_strain": cumulative_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
+            # the reference's multi-scale evaluator scores per step
+            "rmse_position_per_step": per_step_rmse(pred_positions, gt_positions, node_mask),
+            "rmse_strain_per_step": per_step_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
+        }

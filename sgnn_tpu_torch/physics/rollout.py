@@ -7,6 +7,8 @@ window (``rollout_step``). JAX runs the steps as one compiled
 a CUDA graph on the card and replays it
 (``physics/captured_step.py``), and on the CPU runs the same step over
 the same static buffers; ``capture=False`` takes the eager Python loop.
+A call is one span ``rollout`` (a request's root: ``utils/profiling``),
+with ``rollout.inputs`` (the arrays placed on the device) inside it.
 Semantics kept from the reference evaluation loop:
 
   * erosional particles (type -1) follow the ground-truth trajectory and
@@ -30,6 +32,7 @@ from sgnn_tpu_torch.physics.simulator import (
     predict_positions_flat,
 )
 from sgnn_tpu_torch.utils.device import Device, resolve_device
+from sgnn_tpu_torch.utils.profiling import trace_region
 
 EROSIONAL_PARTICLE_ID = -1
 
@@ -104,33 +107,35 @@ def rollout(
     dev = resolve_device(device)
     if sim.device != dev:
         raise ValueError(f"simulator lives on {sim.device}, rollout asked for {dev}")
-    positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
-    particle_types = torch.as_tensor(particle_types, device=dev)
-    strains = torch.as_tensor(strains, dtype=torch.float32, device=dev)
-    if node_mask is not None:
-        node_mask = torch.as_tensor(node_mask, dtype=torch.bool, device=dev)
+    with trace_region("rollout"):
+        with trace_region("rollout.inputs"):
+            positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
+            particle_types = torch.as_tensor(particle_types, device=dev)
+            strains = torch.as_tensor(strains, dtype=torch.float32, device=dev)
+            if node_mask is not None:
+                node_mask = torch.as_tensor(node_mask, dtype=torch.bool, device=dev)
 
-    s = cfg.input_sequence_length
-    window = positions[:, :s]  # [N, S, dim]
-    gt_positions = positions[:, s:].transpose(0, 1)  # [T-S, N, dim]
-    gt_strains = strains[s:]  # [T-S, N]
-    erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
+        s = cfg.input_sequence_length
+        window = positions[:, :s]  # [N, S, dim]
+        gt_positions = positions[:, s:].transpose(0, 1)  # [T-S, N, dim]
+        gt_strains = strains[s:]  # [T-S, N]
+        erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
 
-    fixed = dict(particle_types=particle_types, node_mask=node_mask, erosional=erosional)
-    key = ("rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
-    pred_positions, pred_strains = captured_step.roll(
-        rollout_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
-        capture=capture, owner=sim, key=key,
-    )
+        fixed = dict(particle_types=particle_types, node_mask=node_mask, erosional=erosional)
+        key = ("rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
+        pred_positions, pred_strains = captured_step.roll(
+            rollout_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
+            capture=capture, owner=sim, key=key,
+        )
 
-    return {
-        "initial_positions": positions[:, :s].transpose(0, 1),
-        "initial_strains": strains[:s],
-        "predicted_rollout": pred_positions,  # [T-S, N, dim]
-        "ground_truth_rollout": gt_positions,
-        "predicted_strain": pred_strains,  # [T-S, N]
-        "ground_truth_strain": gt_strains,
-        "particle_types": particle_types,
-        "rmse_position": cumulative_rmse(pred_positions, gt_positions, node_mask),
-        "rmse_strain": cumulative_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
-    }
+        return {
+            "initial_positions": positions[:, :s].transpose(0, 1),
+            "initial_strains": strains[:s],
+            "predicted_rollout": pred_positions,  # [T-S, N, dim]
+            "ground_truth_rollout": gt_positions,
+            "predicted_strain": pred_strains,  # [T-S, N]
+            "ground_truth_strain": gt_strains,
+            "particle_types": particle_types,
+            "rmse_position": cumulative_rmse(pred_positions, gt_positions, node_mask),
+            "rmse_strain": cumulative_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
+        }

@@ -25,7 +25,9 @@ draws ``z``, and for the metrics, and on the card:
     that many replays, each on its own batch: the math of JAX's scan, whose
     last metrics JAX reports; so do the trainers;
   * the metrics are the graph's static outputs, left on the device: read
-    them before the next call overwrites them.
+    them before the next call overwrites them;
+  * a call is the span ``train.step`` (``utils/profiling``), with
+    ``train.warmup`` and ``train.capture`` inside the first.
 
 The parallel steps are ``TrainStep``s too
 (``parallel/data_parallel.DataParallelStep``,
@@ -58,6 +60,7 @@ import torch
 from sgnn_tpu_torch.data.prefetch import tree_map
 from sgnn_tpu_torch.physics.captured_step import LaunchRecord, _buffer, _spec, _tree_map
 from sgnn_tpu_torch.physics.noise import draw_into, draw_shape, random_walk_position_noise
+from sgnn_tpu_torch.utils.profiling import trace_region
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -110,29 +113,30 @@ class TrainStep:
         return {"train/loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
 
     def __call__(self, batch, step: int, noise: Optional[torch.Tensor] = None) -> Metrics:
-        set_lr(self.optimizer, self.sched(step))
-        if noise is not None:
-            return self.update(batch, noise)
-        shape, device = self.noise_shape(batch), batch["positions"].device
-        if not self.capture:
-            z = draw_into(torch.empty(draw_shape(shape), device=device), self.generator)
-            return self.update(batch, random_walk_position_noise(shape, self.noise_std, z=z))
-        if self._key_of(batch) != self._key:
-            self.close()
-            self.batch = _tree_map(_buffer, batch)
-            self.z = torch.empty(draw_shape(shape), device=device)
-        _tree_map(lambda buf, t: buf.copy_(t), self.batch, batch)
-        draw_into(self.z, self.generator)
-        if device.type != "cuda" or not self.capturable:
-            metrics = self._body()
-            self._key = self._key_of(self.batch)  # Adam's state exists now
-            return metrics
-        if self.graph is None:
-            return self._warm_up_and_capture(device)
-        self.graph.replay()
-        self.launches.replayed()
-        self.replays += 1
-        return self.metrics
+        with trace_region("train.step"):
+            set_lr(self.optimizer, self.sched(step))
+            if noise is not None:
+                return self.update(batch, noise)
+            shape, device = self.noise_shape(batch), batch["positions"].device
+            if not self.capture:
+                z = draw_into(torch.empty(draw_shape(shape), device=device), self.generator)
+                return self.update(batch, random_walk_position_noise(shape, self.noise_std, z=z))
+            if self._key_of(batch) != self._key:
+                self.close()
+                self.batch = _tree_map(_buffer, batch)
+                self.z = torch.empty(draw_shape(shape), device=device)
+            _tree_map(lambda buf, t: buf.copy_(t), self.batch, batch)
+            draw_into(self.z, self.generator)
+            if device.type != "cuda" or not self.capturable:
+                metrics = self._body()
+                self._key = self._key_of(self.batch)  # Adam's state exists now
+                return metrics
+            if self.graph is None:
+                return self._warm_up_and_capture(device)
+            self.graph.replay()
+            self.launches.replayed()
+            self.replays += 1
+            return self.metrics
 
     def noise_shape(self, batch) -> tuple:
         """The shape of the noise one step draws: the batch's positions'."""
@@ -150,13 +154,15 @@ class TrainStep:
         return tuple(t.data_ptr() for t in tensors), _spec(batch)
 
     def _warm_up_and_capture(self, device: torch.device) -> Metrics:
-        """This step eagerly on a side stream, then the body captured."""
+        """This step eagerly on a side stream, then the body captured
+        (spans ``train.warmup`` and ``train.capture``)."""
         current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            metrics = self._body()
-        current.wait_stream(side)
+        with trace_region("train.warmup"):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                metrics = self._body()
+            current.wait_stream(side)
         self._key = self._key_of(self.batch)  # Adam's state exists now
         self.optimizer.zero_grad(set_to_none=True)  # the graph allocates and writes the gradients
         graph = torch.cuda.CUDAGraph()
@@ -166,7 +172,8 @@ class TrainStep:
                 self.metrics = self._body()
 
         t0 = time.perf_counter()
-        self.launches = LaunchRecord.around(capture)
+        with trace_region("train.capture"):
+            self.launches = LaunchRecord.around(capture)
         self.capture_seconds = time.perf_counter() - t0
         self.graph = graph
         return metrics

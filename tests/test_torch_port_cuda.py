@@ -640,6 +640,36 @@ def test_captured_rollout_follows_the_weights(cuda):
     assert torch.equal(replaced, moved)
 
 
+def test_captured_rollout_spans_and_capture_counter(cuda):
+    """Under a profile, a captured rollout's first call gives one
+    ``step.warmup`` and one ``step.capture`` span under its ``rollout`` root
+    and raises ``captured_step.CAPTURES`` by one; the second call replays
+    every step, with neither."""
+    from sgnn_tpu_torch.physics import captured_step
+    from sgnn_tpu_torch.physics.rollout import rollout
+    from sgnn_tpu_torch.utils import profiling
+
+    sim, cfg, stats, (pos, types, strains, mask) = _single_scale(cuda, "float32")
+    before = captured_step.CAPTURES
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        for _ in range(2):
+            rollout(sim, cfg, stats, pos, types, strains, mask)
+        torch.cuda.synchronize()
+    assert captured_step.CAPTURES - before == 1
+    recs = profiling.spans()
+    profiling.reset()
+    first, second = [s for s in recs if s.name == "rollout"]
+    assert first.parent == second.parent == -1
+    for name in ("step.warmup", "step.capture"):
+        (span,) = [s for s in recs if s.name == name]
+        assert span.root == first.index and recs[span.parent].name == "rollout.replays"
+        assert span.end_ns > span.start_ns
+    replays = [s for s in recs if s.name == "rollout.replays"]
+    assert [s.root for s in replays] == [first.index, second.index]
+
+
 def test_a_step_that_syncs_fails_to_capture_and_raises(cuda):
     """A step that reads the device back cannot be captured: the rollout
     raises, and no step after the warm-up runs eagerly in its place."""

@@ -1,8 +1,9 @@
 """The port's utilities against JAX's on the CPU: the graph audit, the
-profiling hooks and trace summary, the rollout renderer, the LS-DYNA
-parser, the native radius search, the reference-checkpoint import and the
-parity driver (the counterparts of ``tests/test_aux.py:13-40, 140-230``,
-``tests/test_lsdyna_parser.py``, ``tests/test_multi_scale.py:480-520`` and
+profiling hooks (the span recorder) and trace summary, the rollout
+renderer, the LS-DYNA parser, the native radius search, the
+reference-checkpoint import and the parity driver (the counterparts of
+``tests/test_aux.py:13-40, 140-230``, ``tests/test_lsdyna_parser.py``,
+``tests/test_multi_scale.py:480-520`` and
 ``tests/test_torch_import.py:75``)."""
 
 import pickle
@@ -70,13 +71,22 @@ def test_graph_audit_detects_isolation():
 
 
 def test_step_profiler():
-    prof = profiling.StepProfiler(edges_per_step=100)
-    prof.tick()
-    prof.tick()
-    s = prof.summary()
-    assert s["steps"] == 2 and s["edge_updates_per_s"] > 0
-    with profiling.trace_region("noop"):
+    """The port's span recorder (which replaced the step counter): off, a
+    span records nothing; under a profile it records its name and
+    attributes, nested under the enclosing span."""
+    profiling.reset()
+    with profiling.trace_region("train.step"):
         pass
+    assert profiling.spans() == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.trace_region("train.step", seq=2):
+            with profiling.trace_region("train.capture"):
+                pass
+    step, capture = profiling.spans()
+    assert (step.name, step.attrs, step.parent, step.root) == ("train.step", {"seq": 2}, -1, 0)
+    assert (capture.name, capture.parent, capture.root) == ("train.capture", 0, 0)
+    assert step.start_ns <= capture.start_ns <= capture.end_ns <= step.end_ns
+    profiling.reset()
 
 
 def test_summarize_trace_of_a_cpu_trace(tmp_path):
