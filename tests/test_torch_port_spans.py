@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from sgnn_tpu_torch.data.loader import TrajectoryLoader
+from sgnn_tpu_torch.data.loader import TrajectoryLoader, load_trajectories
 from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
-from sgnn_tpu_torch.data.static_graph_loader import MultiScaleTrajectoryLoader
+from sgnn_tpu_torch.data.static_graph_loader import (MultiScaleTrajectoryLoader, _split_dense_sizes, bucket_dense_sizes,
+                                                       bucket_key, dense_slot_rows)
 from sgnn_tpu_torch.physics import multi_scale_simulator as tms
 from sgnn_tpu_torch.physics import simulator as tsim
+from sgnn_tpu_torch.physics.multi_scale_graph import create_all_edges
 from sgnn_tpu_torch.physics.rollout import rollout
 from sgnn_tpu_torch.utils import profiling
 from sgnn_tpu_torch.utils.profiling import trace_region
@@ -277,6 +279,15 @@ def test_a_tiny_multi_scale_request_gives_its_spans(tmp_path):
     assert [s.name for s in recs if s.name.startswith(("load.", "graph."))] == [
         "load.read", "graph.search", "graph.search", "graph.layout", "load.pad"]
     _assert_request(recs, ("load.read", "graph.search", "graph.layout", "load.pad"))
+    # the serving loader's layout: its shape bucket, and the slot-rows it costs over the split's own
+    (layout,) = _by_name(recs)["graph.layout"]
+    assert layout.attrs["bucket"] == bucket_key(bucket_dense_sizes(
+        _split_dense_sizes([create_all_edges(cfg.graph_config, pos[0]) for pos, _, _ in load_trajectories(path)]),
+        64, cfg.graph_config.max_neighbors))
+    assert 0 < layout.attrs["own_slot_rows"] <= layout.attrs["padded_slot_rows"]
+    assert layout.attrs["padded_slot_rows"] == dense_slot_rows(
+        {"g2m": item["graph"].g2m.senders.shape + (0, 0), "m2g": item["graph"].m2g.senders.shape + (0, 0),
+         "m2m": [de.senders.shape + (0, 0) for de in item["graph"].m2m]}, 6)
 
 
 def test_many_threads_record_at_once():
