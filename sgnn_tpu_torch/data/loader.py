@@ -17,6 +17,7 @@ from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from sgnn_tpu_torch.physics.mesh_simulator import build_mesh, stack_meshes
 from sgnn_tpu_torch.utils.profiling import trace_region
 
 Trajectory = Tuple[np.ndarray, np.ndarray, np.ndarray]
@@ -131,6 +132,24 @@ class SampleBatcher:
     def __iter__(self):
         """One shuffled epoch."""
         return self._epoch()
+
+
+class MeshSampleBatcher(SampleBatcher):
+    """SampleBatcher that attaches each sample's trajectory mesh
+    (``physics/mesh_simulator.build_mesh`` of its first frame, built once
+    per trajectory), stacked over the batch (``batch["mesh"]``, a
+    ``StaticMesh`` of [B, ...] arrays)."""
+
+    def __init__(self, path: str | Path, input_sequence_length: int, batch_size: int, *, mesh_radius: float,
+                 mesh_slots: int, pad_multiple: int = 128, seed: int = 0, drop_remainder: bool = True):
+        super().__init__(path, input_sequence_length, batch_size, pad_multiple=pad_multiple, seed=seed,
+                         drop_remainder=drop_remainder)
+        self.meshes = [build_mesh(pos[0], mesh_radius, mesh_slots, self.num_nodes) for pos, _, _ in self.trajectories]
+
+    def _gather(self, idxs: np.ndarray) -> Dict[str, np.ndarray]:
+        batch = super()._gather(idxs)
+        batch["mesh"] = stack_meshes([self.meshes[self.samples[i][0]] for i in idxs])
+        return batch
 
 
 class TrajectoryLoader:

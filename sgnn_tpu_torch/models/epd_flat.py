@@ -294,10 +294,12 @@ def _mlp_tail_in(mlp, h: torch.Tensor) -> torch.Tensor:
     return _DotWf32.apply(x, last.weight.t()) + last.bias.to(dt)
 
 
-def _edge_block_plain(block, e, xj, proj_i, degrees, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _edge_block_plain(edge_fn, e, xj, proj_i, degrees, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """JAX's ``_edge_block_xla`` for any edge-MLP depth: (new_e, agg) with
-    agg the f32 slot sum of the messages [M, D]."""
-    edge_mlp, edge_ln = block.edge_fn[0], block.edge_fn[1]
+    agg the f32 slot sum of the messages [M, D]. ``edge_fn`` is the
+    ``Sequential(MLP, LayerNorm)`` whose first Linear reads the edge
+    latent as its third block of D rows."""
+    edge_mlp, edge_ln = edge_fn[0], edge_fn[1]
     d = e.shape[-1]
     (_, _, w_e), b_e = split_first_layer(edge_mlp, (d, d, d))
     m = proj_i.shape[0]
@@ -316,7 +318,7 @@ def _edge_stage(block, x, e, xj, degrees, k: int) -> Tuple[torch.Tensor, torch.T
     (w_i, _, w_e), b_e = split_first_layer(edge_mlp, (d, d, d))
     proj_i = x @ w_i  # [M_s, H]
     if len(edge_mlp.linears) != 2:
-        return _edge_block_plain(block, e, xj, proj_i, degrees, k)
+        return _edge_block_plain(block.edge_fn, e, xj, proj_i, degrees, k)
     w2 = edge_mlp.linears[1]
     new_e, agg = fused_edge_block(
         e, xj, proj_i, degrees, w_e.contiguous(), b_e, w2.weight.t().contiguous(), w2.bias,

@@ -8,7 +8,9 @@ a CUDA graph on the card and replays it
 (``physics/captured_step.py``), and on the CPU runs the same step over
 the same static buffers; ``capture=False`` takes the eager Python loop.
 A call is one span ``rollout`` (a request's root: ``utils/profiling``),
-with ``rollout.inputs`` (the arrays placed on the device) inside it.
+with ``rollout.inputs`` (the arrays placed on the device) inside it. A
+MeshGraphNets simulator rolls out with its trajectory's static mesh
+(``mesh=``, ``mesh_rollout_step``), fixed over the steps.
 Semantics kept from the reference evaluation loop:
 
   * erosional particles (type -1) follow the ground-truth trajectory and
@@ -24,7 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
-from sgnn_tpu_torch.physics import captured_step
+from sgnn_tpu_torch.physics import captured_step, mesh_simulator
 from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
     NormStats,
@@ -85,6 +87,18 @@ def rollout_step(sim: LearnedSimulator, cfg: SimulatorConfig, stats: NormStats, 
     return step
 
 
+def mesh_rollout_step(sim, cfg, stats: NormStats, inference_mode: str):
+    """``rollout_step`` of a MeshGraphNets simulator
+    (``physics/mesh_simulator``), whose step also takes the trajectory's
+    static mesh (``fixed["mesh"]``, a ``StaticMesh`` of tensors)."""
+
+    def step(window, gt_pos, gt_strain, *, particle_types, node_mask, erosional, mesh):
+        next_pos, strain = mesh_simulator.predict_positions(sim, cfg, stats, window, particle_types, node_mask, mesh)
+        return advance_window(window, next_pos, strain, gt_pos, gt_strain, erosional, inference_mode)
+
+    return step
+
+
 @torch.inference_mode()
 def rollout(
     sim: LearnedSimulator,
@@ -97,11 +111,14 @@ def rollout(
     inference_mode: str = "autoregressive",
     device: Device = None,
     capture: bool = True,
+    mesh: Optional[mesh_simulator.StaticMesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """Roll the model out over a trajectory on ``device`` (CUDA unless
     told otherwise; ``sim`` and ``stats`` must already live there), its
     step captured in a CUDA graph on the card; ``capture=False`` runs the
-    eager loop. Returns the reference's output dict as tensors."""
+    eager loop. ``mesh``: the trajectory's static mesh, for a MeshGraphNets
+    simulator (``mesh_rollout_step``). Returns the reference's output dict
+    as tensors."""
     if inference_mode not in ("autoregressive", "one_step"):
         raise ValueError(f"Unknown inference_mode: {inference_mode}")
     dev = resolve_device(device)
@@ -114,6 +131,8 @@ def rollout(
             strains = torch.as_tensor(strains, dtype=torch.float32, device=dev)
             if node_mask is not None:
                 node_mask = torch.as_tensor(node_mask, dtype=torch.bool, device=dev)
+            if mesh is not None:
+                mesh = mesh_simulator.StaticMesh(*(torch.as_tensor(a, device=dev) for a in mesh))
 
         s = cfg.input_sequence_length
         window = positions[:, :s]  # [N, S, dim]
@@ -122,9 +141,12 @@ def rollout(
         erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
 
         fixed = dict(particle_types=particle_types, node_mask=node_mask, erosional=erosional)
+        make_step = rollout_step
+        if mesh is not None:
+            fixed["mesh"], make_step = mesh, mesh_rollout_step
         key = ("rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
         pred_positions, pred_strains = captured_step.roll(
-            rollout_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
+            make_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
             capture=capture, owner=sim, key=key,
         )
 

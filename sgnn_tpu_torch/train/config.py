@@ -80,6 +80,19 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 10
 
+    # the single-scale trainer's model: "gns" (the reference's) or
+    # "meshgraphnet" (physics/mesh_simulator.py)
+    architecture: str = "gns"
+    # meshgraphnet: the static mesh (first-frame pairs closer than
+    # mesh_radius) and the per-step world edges (pairs closer than
+    # world_radius, mesh pairs and self taken out); slot widths None ->
+    # derived from the training split (mesh_simulator.derive_slots)
+    mesh_radius: float = 0.6
+    world_radius: float = 0.75
+    mesh_slots: Optional[int] = None
+    world_search_slots: Optional[int] = None
+    world_slots: Optional[int] = None
+
     @property
     def domain(self) -> Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]]:
         if self.domain_min is None or self.domain_max is None:

@@ -54,6 +54,15 @@ the captured step; a graph-parallel step folds them into its halo guard,
 which rejects the step), and the trainer warns at a log point where it is
 above 0. ``debug_graph: true`` audits the first training sample's graph
 before training (``utils/graph_debug.audit_neighbor_list``).
+
+``architecture: meshgraphnet`` trains and rolls out MeshGraphNets
+(``physics/mesh_simulator.py``) through the same feed, step, validation
+and ``predict``: ``MeshSampleBatcher`` attaches each sample's static mesh,
+the loss is ``make_mesh_loss_fn``'s, and each rolled-out trajectory's mesh
+is built from its first frame (``make_rollout``). Its slot widths
+(``mesh_slots``, ``world_search_slots``, ``world_slots``) are derived from
+the training split where the config leaves them unset; it runs on one
+device in f32 (``check_architecture``).
 """
 
 from __future__ import annotations
@@ -70,7 +79,13 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from sgnn_tpu_torch.data.loader import SampleBatcher, TrajectoryLoader, load_metadata
+from sgnn_tpu_torch.data.loader import (
+    MeshSampleBatcher,
+    SampleBatcher,
+    TrajectoryLoader,
+    load_metadata,
+    load_trajectories,
+)
 from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
 from sgnn_tpu_torch.models.epd_flat import check_remat
 from sgnn_tpu_torch.parallel.data_parallel import DataParallelStep
@@ -83,6 +98,8 @@ from sgnn_tpu_torch.parallel.edge_partition import (
     partition_sample,
 )
 from sgnn_tpu_torch.parallel.mesh import Mesh, make_mesh
+from sgnn_tpu_torch.physics import mesh_simulator
+from sgnn_tpu_torch.physics.mesh_simulator import MeshSimulatorConfig, build_mesh, derive_slots, mesh_simulator_init
 from sgnn_tpu_torch.physics.rollout import rollout as rollout_fn
 from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
@@ -130,12 +147,6 @@ def simulator_config_from(cfg: TrainConfig, metadata: dict) -> SimulatorConfig:
             and slots is not None
             and int(max_degree) + 2 <= slots
         )
-    domain = cfg.domain
-    if domain is None and "pos_min" in metadata and "pos_max" in metadata:
-        lo = np.asarray(metadata["pos_min"], np.float64)
-        hi = np.asarray(metadata["pos_max"], np.float64)
-        pad = 0.25 * (hi - lo) + 4 * cfg.connection_radius  # rollout-drift margin
-        domain = (tuple(lo - pad), tuple(hi + pad))
     return SimulatorConfig(
         dim=cfg.dim,
         latent_dim=cfg.hidden_dim,
@@ -149,11 +160,80 @@ def simulator_config_from(cfg: TrainConfig, metadata: dict) -> SimulatorConfig:
         neighbor_slots=slots,
         symmetric_gather=bool(symmetric),
         compute_dtype=cfg.compute_dtype,
-        domain=domain,
+        domain=_domain(cfg, metadata, cfg.connection_radius),
         cell_capacity=cfg.cell_capacity,
         band_nodes=cfg.band_nodes,
         remat=cfg.remat,
     )
+
+
+def _domain(cfg: TrainConfig, metadata: dict, radius: float):
+    """The config's static search domain, else the dataset's extent with a
+    rollout-drift margin; None without either."""
+    if cfg.domain is not None or "pos_min" not in metadata or "pos_max" not in metadata:
+        return cfg.domain
+    lo = np.asarray(metadata["pos_min"], np.float64)
+    hi = np.asarray(metadata["pos_max"], np.float64)
+    pad = 0.25 * (hi - lo) + 4 * radius  # rollout-drift margin
+    return (tuple(lo - pad), tuple(hi + pad))
+
+
+ARCHITECTURES = ("gns", "meshgraphnet")
+
+
+def check_architecture(cfg: TrainConfig) -> None:
+    """The architecture is known; MeshGraphNets runs on one device, in
+    f32, without the single-scale model's capacity knobs."""
+    if cfg.architecture not in ARCHITECTURES:
+        raise ValueError(f"architecture must be one of {ARCHITECTURES}, got {cfg.architecture!r}")
+    if cfg.architecture == "meshgraphnet":
+        unsupported = {"data_parallel": cfg.data_parallel > 1, "graph_parallel": cfg.graph_parallel > 1,
+                       "remat": check_remat(cfg.remat) is not False, "band_nodes": cfg.band_nodes is not None,
+                       "symmetric_gather": bool(cfg.symmetric_gather), "debug_graph": cfg.debug_graph,
+                       "compute_dtype": cfg.compute_dtype != "float32"}
+        named = sorted(k for k, v in unsupported.items() if v)
+        if named:
+            raise ValueError(f"architecture meshgraphnet does not take {', '.join(named)}")
+
+
+def mesh_config_from(cfg: TrainConfig, metadata: dict, data_dir: Path) -> MeshSimulatorConfig:
+    """The MeshGraphNets simulator's config; slot widths the config leaves
+    unset are derived from the training split (``derive_slots``) and
+    printed."""
+    slots = {k: getattr(cfg, k) for k in ("mesh_slots", "world_search_slots", "world_slots")}
+    if None in slots.values():
+        derived = derive_slots(load_trajectories(data_dir / "train.npz"), cfg.mesh_radius, cfg.world_radius)
+        slots = {k: derived[k] if v is None else v for k, v in slots.items()}
+        print(f"meshgraphnet slot widths from the training split: {slots}")
+    return MeshSimulatorConfig(
+        dim=cfg.dim,
+        latent_dim=cfg.hidden_dim,
+        num_message_passing_steps=cfg.layers,
+        num_mlp_layers=2,  # MeshGraphNets' MLPs (core_model.py)
+        connectivity_radius=cfg.connection_radius,
+        mesh_radius=cfg.mesh_radius,
+        world_radius=cfg.world_radius,
+        input_sequence_length=cfg.input_sequence_length,
+        num_particle_types=int(metadata.get("num_particle_types", 1)),
+        particle_type_embedding_size=cfg.particle_type_embedding_size,
+        domain=_domain(cfg, metadata, cfg.world_radius),
+        cell_capacity=cfg.cell_capacity,
+        **slots,
+    )
+
+
+def model_config_from(cfg: TrainConfig, metadata: dict, data_dir: Path):
+    """The simulator config of ``cfg.architecture``."""
+    check_architecture(cfg)
+    if cfg.architecture == "meshgraphnet":
+        return mesh_config_from(cfg, metadata, data_dir)
+    return simulator_config_from(cfg, metadata)
+
+
+def model_init(sim_cfg, cfg: TrainConfig, device: torch.device) -> torch.nn.Module:
+    """The simulator of ``sim_cfg``'s architecture, its weights from ``cfg.seed``."""
+    init = mesh_simulator_init if isinstance(sim_cfg, MeshSimulatorConfig) else simulator_init
+    return init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=device)
 
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -207,6 +287,22 @@ def make_loss_fn(sim: LearnedSimulator, sim_cfg: SimulatorConfig, stats: NormSta
     return loss_fn
 
 
+def make_mesh_loss_fn(sim: torch.nn.Module, sim_cfg: MeshSimulatorConfig, stats: NormStats,
+                      cfg: TrainConfig) -> Callable:
+    """``make_loss_fn`` of a MeshGraphNets simulator: its batches carry the
+    samples' meshes (``batch["mesh"]``)."""
+
+    def loss_fn(batch, noise, denom=None):
+        out = mesh_simulator.predict_accelerations_batched(
+            sim, sim_cfg, stats, batch["next_position"], noise, batch["positions"], batch["particle_type"],
+            batch["node_mask"], batch["mesh"],
+        )
+        return one_step_loss(*out, batch["next_strain"], batch["node_mask"], weight_position=cfg.loss_weight_position,
+                             weight_strain=cfg.loss_weight_strain, denom=denom)
+
+    return loss_fn
+
+
 def make_train_step(
     sim: LearnedSimulator,
     sim_cfg: SimulatorConfig,
@@ -220,8 +316,9 @@ def make_train_step(
     the card (``TrainStep``). ``step`` is the count of updates before this
     one (the schedule's argument); ``noise`` replaces the draw from
     ``generator`` (the parity tests inject JAX's). Metrics are 0-d tensors
-    left on the device."""
-    return TrainStep(make_loss_fn(sim, sim_cfg, stats, cfg), optimizer, lr_schedule(cfg), cfg.noise_std, generator)
+    left on the device. A MeshGraphNets config takes its own loss."""
+    make = make_mesh_loss_fn if isinstance(sim_cfg, MeshSimulatorConfig) else make_loss_fn
+    return TrainStep(make(sim, sim_cfg, stats, cfg), optimizer, lr_schedule(cfg), cfg.noise_std, generator)
 
 
 @dataclass
@@ -287,15 +384,17 @@ def build_training(
     check_parallel(cfg)
     data_dir = Path(cfg.data_path)
     metadata = load_metadata(data_dir)
-    sim_cfg = simulator_config_from(cfg, metadata)
+    sim_cfg = model_config_from(cfg, metadata, data_dir)
     stats = make_norm_stats(metadata, cfg.noise_std, device=device)
-    sim = simulator_init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=device)
+    sim = model_init(sim_cfg, cfg, device)
     optimizer = make_optimizer(sim, cfg)
     noise_gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    batcher = SampleBatcher(
-        data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size,
-        pad_multiple=cfg.pad_multiple, seed=cfg.seed,
-    )
+    kw = dict(pad_multiple=cfg.pad_multiple, seed=cfg.seed)
+    if isinstance(sim_cfg, MeshSimulatorConfig):
+        batcher = MeshSampleBatcher(data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size,
+                                    mesh_radius=sim_cfg.mesh_radius, mesh_slots=sim_cfg.mesh_slots, **kw)
+    else:
+        batcher = SampleBatcher(data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size, **kw)
     mesh, spec = parallel_mesh(cfg, device, devices), None
     sched = lr_schedule(cfg)
     if cfg.data_parallel > 1:
@@ -332,12 +431,17 @@ def make_rollout(
 ) -> Callable:
     """The rollout ``predict`` and the validation run: its step captured in
     a CUDA graph on the card (``physics/captured_step.py``), the
-    counterpart of JAX's ``make_jit_rollout``."""
+    counterpart of JAX's ``make_jit_rollout``. A MeshGraphNets config
+    builds each trajectory's mesh from its first frame first."""
 
     def _rollout(sim, positions, types, strains, node_mask):
+        mesh = None
+        if isinstance(sim_cfg, MeshSimulatorConfig):
+            real = np.asarray(positions)[np.asarray(node_mask, bool)]
+            mesh = build_mesh(real[:, 0], sim_cfg.mesh_radius, sim_cfg.mesh_slots, len(node_mask))
         return rollout_fn(
             sim, sim_cfg, stats, positions, types, strains,
-            node_mask=node_mask, inference_mode=mode, device=device,
+            node_mask=node_mask, inference_mode=mode, device=device, mesh=mesh,
         )
 
     return _rollout
@@ -429,10 +533,14 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
     monitor = ResourceMonitor(dev)
     sched = lr_schedule(cfg)
     rejection_tracker = RejectionTracker(limit=REJECTION_LIMIT)
+    if isinstance(sim_cfg, MeshSimulatorConfig):
+        graph = (f"mesh_slots={sim_cfg.mesh_slots} world_slots={sim_cfg.world_slots} "
+                 f"(search {sim_cfg.world_search_slots})")
+    else:
+        graph = f"slots={sim_cfg.slots} symmetric_gather={sim_cfg.symmetric_gather}"
     print(
-        f"training: layers={cfg.layers} hidden={cfg.hidden_dim} batch={cfg.batch_size} "
-        f"nodes_padded={batcher.num_nodes} slots={sim_cfg.slots} "
-        f"symmetric_gather={sim_cfg.symmetric_gather} dtype={cfg.compute_dtype} "
+        f"training: {cfg.architecture} layers={cfg.layers} hidden={cfg.hidden_dim} batch={cfg.batch_size} "
+        f"nodes_padded={batcher.num_nodes} {graph} dtype={cfg.compute_dtype} "
         f"steps={cfg.ntraining_steps} device={dev}"
     )
 
@@ -529,13 +637,13 @@ def predict(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence]
     dev = resolve_device(device)
     data_dir = Path(cfg.data_path)
     metadata = load_metadata(data_dir)
-    sim_cfg = simulator_config_from(cfg, metadata)
+    sim_cfg = model_config_from(cfg, metadata, data_dir)
     stats = make_norm_stats(metadata, cfg.noise_std, device=dev)
 
     if cfg.model_file is None:
         print("error: valid/rollout modes require model_file", file=sys.stderr)
         sys.exit(1)
-    sim = simulator_init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+    sim = model_init(sim_cfg, cfg, dev)
     state, _ = CheckpointManager(Path(cfg.model_path) / cfg.run_name).restore(
         cfg.model_file, map_location=dev
     )
