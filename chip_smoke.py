@@ -144,7 +144,18 @@ each of which raises on failure:
      captured step for remat ``False`` and ``"full"`` (torch.equal), its
      banded gathers counted, and the packed route timed against the
      unfused one at batches 1 and 2 (614,400 and 1,228,800 nodes;
-     torch.equal). One ``capacity {...}`` JSON line.
+     torch.equal). One ``capacity {...}`` JSON line;
+ 13. the edge stage's epilogue kernels (``csrc/edge_epilogue.cu``):
+     their launches per step of the trainer's captured step
+     (``epilogue_launches``: MeshGraphNets at its published widths 30
+     and 30, the dense f32 multi-scale model one each per dense edge set,
+     config A none), then checked against the composite they replace
+     (new_e, agg and g_o to their limits, g_e exactly, the parameter
+     gradients to EPILOGUE_SUM_RTOL of their terms; two runs bit for bit)
+     and timed against their bytes bound at the training configurations'
+     shapes (``phase_edge_epilogue``: one ``edge_epilogue <shape> {...}``
+     line each). Phases 9-11 hold their launches on every multi-scale
+     route (dense f32: one a block; bf16 and COO: none).
 
 The last lines are the training routes of 5 and 10 (one ``train routes
 {...}`` JSON line), the rollout routes of 6 and 9 (one ``routes {...}``
@@ -155,10 +166,12 @@ launches under ``launches_by_path``), the nvidia-smi line, and
     python3 chip_smoke.py --only row_gather_bwd
     python3 chip_smoke.py --only parallel
     python3 chip_smoke.py --only capacity
+    python3 chip_smoke.py --only edge_epilogue
 
 run phases 1, 2, 4 and the backward kernels' checks and times of 10 (one
-``bwd {...}`` JSON line), phase 11 (its ``parallel {...}`` line) or
-phase 12 (its ``capacity {...}`` line), alone.
+``bwd {...}`` JSON line), phase 11 (its ``parallel {...}`` line), phase
+12 (its ``capacity {...}`` line) or phase 13 (its ``edge_epilogue
+{...}`` line), alone.
 """
 
 from __future__ import annotations
@@ -789,12 +802,27 @@ def _clone(tree):
 
 def _launch_counts():
     from sgnn_tpu_torch.ops import edge_block as eb
+    from sgnn_tpu_torch.ops import edge_epilogue as ee
     from sgnn_tpu_torch.ops import row_gather as rg
     from sgnn_tpu_torch.ops import sym_gather as sg
 
     return dict(edge_block_fwd=eb.LAUNCHES, edge_block_bwd=eb.BWD_LAUNCHES, sym_gather_bwd=sg.BWD_CALLS,
                 take=rg.LAUNCHES[rg.MODEL_VARIANT], sorted=rg.BWD_LAUNCHES["sorted"],
-                planned=rg.BWD_LAUNCHES["planned"])
+                planned=rg.BWD_LAUNCHES["planned"], epilogue_fwd=ee.LAUNCHES, epilogue_bwd=ee.BWD_LAUNCHES)
+
+
+EPILOGUE_KEYS = ("epilogue_fwd", "epilogue_bwd")
+
+
+def reset_epilogue_launches():
+    from sgnn_tpu_torch.ops import edge_epilogue as ee
+
+    ee.LAUNCHES = ee.BWD_LAUNCHES = 0
+
+
+def epilogue_counts() -> dict:
+    counts = _launch_counts()
+    return {k: counts[k] for k in EPILOGUE_KEYS}
 
 
 def training_routes(where, cfg, device, trainer, repeat_eager=False, devices=None):
@@ -1579,16 +1607,23 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
     log(f"ms {name}: {len(frames)} test trajectories x {loader.num_nodes} nodes (padded), "
         f"{'dense' if dense else 'COO'} layout, {blocks} blocks, {steps} rollout steps, {dtype_name}")
 
+    # the edge stages' epilogue kernels: one forward per dense block in f32
+    expect_epilogue = dict(epilogue_fwd=blocks * steps if dense and dtype_name == "float32" else 0, epilogue_bwd=0)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_gather_launches()
     reset_bwd_gather_launches()
+    reset_epilogue_launches()
     # the port's entry point, on CUDA by default: its step captured and replayed
     summary = tms.main(["--config", str(yml), "--mode", "rollout", "--model_file", model_file])
     launches = dict(rg.LAUNCHES, sorted_sum=rg.BWD_LAUNCHES["sorted"])
+    epilogue = epilogue_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     if launches != expect:
         raise AssertionError(f"ms {name}: row_gather launches {launches}, expected {expect}")
+    if epilogue != expect_epilogue:
+        raise AssertionError(f"ms {name}: edge_epilogue launches {epilogue}, expected {expect_epilogue}")
     if not all(math.isfinite(summary[k]) for k in ("total", "position", "strain", "one_step")):
         raise AssertionError(f"ms {name}: non-finite summary {summary}")
     outs = []
@@ -1605,8 +1640,8 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
     ms_step = warm["run_time"] / warm["predicted_rollout"].shape[0] * 1e3
     result = dict(
         run=name, layout="dense" if dense else "coo", compute_dtype=dtype_name, blocks=blocks,
-        launches=launches, expected_launches=expect, gathers_per_step=per_step, steps=steps,
-        nodes=loader.num_nodes, ms_per_step=ms_step, steps_per_s=1e3 / ms_step,
+        launches=launches, expected_launches=expect, epilogue_launches=epilogue, gathers_per_step=per_step,
+        steps=steps, nodes=loader.num_nodes, ms_per_step=ms_step, steps_per_s=1e3 / ms_step,
         first_trajectory_s=outs[0]["run_time"], peak_memory_mb=peak_mb,
         summary={k: summary[k] for k in ("total", "position", "strain", "one_step", "mean_time", "std_time")},
         device=kind, nvidia_smi=smi,
@@ -1745,11 +1780,13 @@ def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
     torch.cuda.synchronize()
     reset_gather_launches()
     reset_bwd_gather_launches()
+    reset_epilogue_launches()
     t0 = time.perf_counter()
     result = tms.main(["--config", str(yml), "--mode", "train"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     got = dict(rg.LAUNCHES, **{f"bwd_{k}": v for k, v in rg.BWD_LAUNCHES.items()})
+    epilogue = epilogue_counts()
 
     # the counts the graphs ask: the training split's batcher and the validation loader
     sim_cfg = tms.ms_config_from(cfg, load_metadata(data))
@@ -1775,6 +1812,13 @@ def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
                   bwd_planned=blocks * steps if dense else 0)
     if got != expect:
         raise AssertionError(f"ms train {name}: launches {got}, expected {expect}")
+    # the edge stages' epilogue kernels, dense f32 only: per block, one forward
+    # and one backward a training step and one forward a validation step
+    on = dense and cfg.compute_dtype == "float32"
+    expect_epilogue = dict(epilogue_fwd=blocks * steps + val_blocks * rollout_steps if on else 0,
+                           epilogue_bwd=blocks * steps if on else 0)
+    if epilogue != expect_epilogue:
+        raise AssertionError(f"ms train {name}: edge_epilogue launches {epilogue}, expected {expect_epilogue}")
     if result["step"] != steps or not math.isfinite(result["lowest_eval_loss"]):
         raise AssertionError(f"ms train {name}: {result}")
     run_dir = Path(cfg.model_path) / cfg.run_name
@@ -1794,7 +1838,7 @@ def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
     out = dict(
         run=name, layout="dense" if dense else "coo", compute_dtype=cfg.compute_dtype, batch_size=cfg.batch_size,
         blocks=blocks, steps=steps, validation_rollout_steps=val_steps * n_val, launches=got,
-        expected_launches=expect, ms_per_step_last_log=train_rec[-1]["train/step_time_s"] * 1e3,
+        expected_launches=expect, epilogue_launches=epilogue, ms_per_step_last_log=train_rec[-1]["train/step_time_s"] * 1e3,
         logged_steps=log_steps, train_loss=[r["train/loss"] for r in train_rec],
         val_loss=[r["val/loss"] for r in val_rec], checkpoint=meta["path"], wall_s=wall_s, device=kind,
         nvidia_smi=smi,
@@ -1836,12 +1880,13 @@ def ms_card_vs_cpu_step(root: Path, data: Path, name: str, device):
                                                generator=torch.Generator().manual_seed(2))
             blocks = ms_blocks(built.batcher.graphs[0])
         before = {k: v.detach().cpu().clone() for k, v in built.sim.state_dict().items()}
-        launches = dict(rg.BWD_LAUNCHES)
+        launches, epilogue = dict(rg.BWD_LAUNCHES), epilogue_counts()
         t0 = time.perf_counter()
         metrics = {k: float(v) for k, v in built.step_fn(tms.batch_to_device(batch, dev), 0,
                                                           noise=noise.to(dev)).items()}
         runs[where] = dict(metrics=metrics, seconds=time.perf_counter() - t0,
                            bwd={k: rg.BWD_LAUNCHES[k] - launches[k] for k in launches},
+                           epilogue={k: v - epilogue[k] for k, v in epilogue_counts().items()},
                            grads={k: p.grad.detach().cpu() for k, p in built.sim.named_parameters()},
                            params={k: v.detach().cpu() for k, v in built.sim.state_dict().items()}, before=before)
         del built
@@ -1850,13 +1895,18 @@ def ms_card_vs_cpu_step(root: Path, data: Path, name: str, device):
     if card["bwd"] != {"sorted": 2 * blocks, "planned": blocks} or on_cpu["bwd"] != {"sorted": 0, "planned": 0}:
         raise AssertionError(f"ms card vs CPU step {name}: sorted / planned launches {card['bwd']} (card), "
                              f"{on_cpu['bwd']} (CPU), expected {2 * blocks} / {blocks} on the card")
+    # the epilogue kernels on the card in f32 (per block), the plain composite on the CPU
+    want = dict.fromkeys(EPILOGUE_KEYS, 0 if bf16 else blocks)
+    if card["epilogue"] != want or on_cpu["epilogue"] != dict.fromkeys(EPILOGUE_KEYS, 0):
+        raise AssertionError(f"ms card vs CPU step {name}: edge_epilogue launches {card['epilogue']} (card), "
+                             f"{on_cpu['epilogue']} (CPU), expected {want} on the card")
     gaps = None
     if bf16:
         gaps = {k: float((g - runs["cpu_f32"]["grads"][k]).abs().max()) for k, g in on_cpu["grads"].items()}
     worst = compare_steps(f"ms card vs CPU step {name}", card, on_cpu, step_tol, cfg.lr_init + 1e-6, gaps)
     repeats = all(torch.equal(g, runs["card_again"]["grads"][k]) for k, g in card["grads"].items())
     out = dict(run=name, compute_dtype=cfg.compute_dtype, samples=2, receivers=int(batch["node_mask"].size),
-               backward_launches=card["bwd"], loss=card["metrics"]["train/loss"], max_err=worst, tol=step_tol,
+               backward_launches=card["bwd"], epilogue_launches=card["epilogue"], loss=card["metrics"]["train/loss"], max_err=worst, tol=step_tol,
                card_gradients_repeat_bitwise=repeats,
                gap_factor=BF16_GAP_FACTOR if bf16 else None, card_s=card["seconds"], cpu_s=on_cpu["seconds"])
     log("ms card vs CPU step " + json.dumps(out))
@@ -2256,7 +2306,8 @@ def dp_ms_route(root: Path, data: Path, card, smi: str):
     del batch, noise, single, dp
     torch.cuda.empty_cache()
     routes = training_routes("dp ms dense_f32", cfg, card, tms, devices=devices)
-    expect = dict(take=2 * 3 * blocks, sorted=2 * 2 * blocks, planned=2 * blocks)  # twice one replica's
+    expect = dict(take=2 * 3 * blocks, sorted=2 * 2 * blocks, planned=2 * blocks,  # twice one replica's
+                  **dict.fromkeys(EPILOGUE_KEYS, 2 * blocks))
     got = {k: routes["captured"]["launches_per_step"][k] for k in expect}
     if got != expect:
         raise AssertionError(f"dp ms: launches per step {got}, expected {expect}")
@@ -2559,11 +2610,14 @@ def gp_ms_first_step(where, cfg, card, tol):
             built.sim, batch["positions"], batch["particle_type"], batch["graph"])
     before = _launch_counts()
     gp = step_outputs(built, batch, noise)
-    step_launches = {k: v - before[k] for k, v in _launch_counts().items() if k in ("take", "sorted", "planned")}
+    step_launches = {k: v - before[k] for k, v in _launch_counts().items()
+                     if k in ("take", "sorted", "planned") + EPILOGUE_KEYS}
     blocks, shards = gp_ms_blocks(built.graphs[0]), built.spec.num_shards
-    # per shard and block, as one device's step (see run_ms_train)
+    # per shard and block, as one device's step (see run_ms_train); the
+    # epilogue kernels per shard and dense block in f32
     expect = dict(take=shards * (3 if dense else 4) * blocks, sorted=shards * (2 if dense else 3) * blocks,
-                  planned=shards * blocks if dense else 0)
+                  planned=shards * blocks if dense else 0,
+                  **dict.fromkeys(EPILOGUE_KEYS, shards * blocks if dense and cfg.compute_dtype == "float32" else 0))
     if step_launches != expect:
         raise AssertionError(f"{where}: the partitioned step launched {step_launches}, expected {expect}")
     del built
@@ -2734,11 +2788,13 @@ def gp_ms_route(root: Path, data: Path, name: str, card, smi: str):
     torch.cuda.synchronize()
     reset_gather_launches()
     reset_bwd_gather_launches()
+    reset_epilogue_launches()
     t0 = time.perf_counter()
     result = tms.train(cfg, device=card, devices=devices)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     got = dict(rg.LAUNCHES, **{f"bwd_{k}": v for k, v in rg.BWD_LAUNCHES.items()})
+    epilogue = epilogue_counts()
     # per shard, training step and block as on one device (see run_ms_train);
     # per shard, validation rollout step and block: two gathers, one sum
     expect = {v: 0 for v in rg.VARIANTS}
@@ -2747,6 +2803,10 @@ def gp_ms_route(root: Path, data: Path, name: str, card, smi: str):
                   bwd_planned=shards * blocks * TRAIN_STEPS if dense else 0)
     if got != expect or result["step"] != TRAIN_STEPS or not math.isfinite(result["lowest_eval_loss"]):
         raise AssertionError(f"gp ms {name}: launches {got}, expected {expect}; {result}")
+    # the epilogue kernels per shard, dense block and training step (f32; the validation plans COO)
+    expect_epilogue = dict.fromkeys(EPILOGUE_KEYS, shards * blocks * TRAIN_STEPS if dense else 0)
+    if epilogue != expect_epilogue:
+        raise AssertionError(f"gp ms {name}: edge_epilogue launches {epilogue}, expected {expect_epilogue}")
     run_dir = Path(cfg.model_path) / cfg.run_name
     records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
     train_rec = [r for r in records if "train/loss" in r]
@@ -2763,7 +2823,7 @@ def gp_ms_route(root: Path, data: Path, name: str, card, smi: str):
     log(f"gp ms {name} rollout: {json.dumps(rollout)}")
     return dict(run=name, graph_parallel=shards, batch_size=1, blocks=blocks, validation_blocks=val_blocks,
                 validation_rollout_steps=rollout_steps, launches=got, expected_launches=expect,
-                launches_per_step=routes["captured"]["launches_per_step"], wall_s=wall_s,
+                epilogue_launches=epilogue, launches_per_step=routes["captured"]["launches_per_step"], wall_s=wall_s,
                 ms_per_step_last_log=train_rec[-1]["train/step_time_s"] * 1e3,
                 train_loss=[r["train/loss"] for r in train_rec], val_loss=[r["val/loss"] for r in val_rec],
                 first_step_vs_one_device=first, routes=routes, rollout=rollout, nvidia_smi=smi)
@@ -2830,6 +2890,13 @@ def add_parallel_launches(kernels, par) -> None:
                                        "gp_ms_dense_f32_per_step": gd["launches_per_step"]["planned"],
                                        "gp_ms_dense_bf16_per_step": gb["planned"]},
     }
+    for kname, key in (("edge_epilogue_fwd", "epilogue_fwd"), ("edge_epilogue_bwd", "epilogue_bwd")):
+        paths[(kname, "float32")] = {"dp_ms_dense_f32_per_step": ms[key],
+                                     "gp_train_ms_dense_f32": gd["epilogue_launches"][key],
+                                     "gp_train_ms_coo_f32": gc["epilogue_launches"][key],
+                                     "gp_ms_dense_f32_per_step": gd["launches_per_step"][key],
+                                     "gp_ms_coo_f32_per_step": gc["launches_per_step"][key],
+                                     "gp_ms_dense_bf16_per_step": gb[key]}
     for entry in kernels:
         for key in ((entry["name"], entry.get("dtype")), (entry["name"], None)):
             entry["launches_by_path"].update(paths.get(key, {}))
@@ -3427,7 +3494,8 @@ def phase_capacity(root: Path, data: Path, card, smi: str) -> dict:
 def add_capacity_launches(kernels, cap) -> None:
     """Phase 12's launches per step under each kernel's ``launches_by_path``:
     config A's remat modes (f32) and the capacity point's (bf16)."""
-    keys = {"edge_block_fwd": "edge_block_fwd", "edge_block_bwd": "edge_block_bwd", "row_gather_take": "take"}
+    keys = {"edge_block_fwd": "edge_block_fwd", "edge_block_bwd": "edge_block_bwd", "row_gather_take": "take",
+            "edge_epilogue_fwd": "epilogue_fwd", "edge_epilogue_bwd": "epilogue_bwd"}
     a = {f"capacity_A_remat_{m}_per_step": r["captured"]["launches_per_step"] for m, r in cap["remat_A"].items()}
     point = {f"capacity_point_remat_{m}_per_step": r["launches_per_step"]
              for m, r in cap["capacity_point"]["modes"].items()}
@@ -3440,13 +3508,248 @@ def add_capacity_launches(kernels, cap) -> None:
                 entry["launches_by_path"].update({path: counts[key] for path, counts in paths.items()})
 
 
+# the edge stage's epilogue (csrc/edge_epilogue.cu) at the training cells'
+# shapes: (receivers, slots, width, share of live slots). The live shares:
+# MeshGraphNets' quad mesh (interior nodes 4 of 4) and its world stage
+# (world_slot_fill.train, 34 %); the multi-scale stages a half (their
+# degrees are the hierarchy's, not measured here)
+EPILOGUE_SHAPES = {
+    "mgn_mesh": (38912, 4, 128, 0.95),
+    "mgn_world": (38912, 8, 128, 0.34),
+    "ms_m2m": (19456, 24, 128, 0.5),
+    "ms_g2m": (19456, 16, 128, 0.5),
+    "ms_m2g": (77824, 8, 128, 0.5),
+}
+
+
+def epilogue_inputs(r, k, d, fill, seed, device):
+    """o, b2, lns, lnb, mask [R*K, 1], e, g_new, g_agg; degrees drawn so
+    that about ``fill`` of the slots are live (prefix-compacted)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    degrees = torch.distributions.Binomial(k, torch.full((r, 1), fill)).sample()
+    mask = (torch.arange(k)[None, :] < degrees).float().reshape(r * k, 1)
+    out = [torch.randn(r * k, d, generator=g) * 2.0 + 0.5, torch.randn(d, generator=g) * 0.1,
+           1.0 + torch.randn(d, generator=g) * 0.1, torch.randn(d, generator=g) * 0.1, mask,
+           torch.randn(r * k, d, generator=g) * mask, torch.randn(r * k, d, generator=g),
+           torch.randn(r, d, generator=g)]
+    return [t.to(device) for t in out]
+
+
+# the parameter gradients' limit against the composite: their error grows with
+# the sum of the terms' sizes (rows added in another order); the edge block's
+# measured 1.3e-7 of it at 39k terms, 2e-5 leaves room for 12 times the rows
+EPILOGUE_SUM_RTOL = 2e-5
+
+
+def epilogue_sum_terms(o, b2, mask, g_new, g_agg, g_o, k):
+    """Per column, the sum of the sizes of the terms of g_b2 (the composite's
+    g_o), g_lns (g_ln * xhat) and g_lnb (g_ln)."""
+    import torch.nn.functional as F
+
+    xhat = F.layer_norm(o + b2, (o.shape[-1],))
+    g_ln = (g_new * mask + g_agg.repeat_interleave(k, dim=0)) * mask
+    return g_o.abs().sum(0), (g_ln * xhat).abs().sum(0), g_ln.abs().sum(0)
+
+
+def epilogue_bound(r, k, d, live):
+    """Least ms of each direction: the bytes over HBM rate (no products).
+    Forward: o and e at the live slots, the mask, new_e and agg written
+    once; backward: o and g_new at the live slots, g_agg, the mask, g_o
+    and g_e written once, the three parameter gradients."""
+    fwd = 4 * d * (2 * live + r * k + r) + 4 * r * k + 4 * 3 * d
+    bwd = 4 * d * (2 * live + r + 2 * r * k) + 4 * r * k + 4 * 2 * 3 * d
+    return {"fwd_bytes": fwd, "bwd_bytes": bwd, "fwd_bound_ms": fwd / HBM_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": bwd / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_edge_epilogue(dev) -> dict:
+    """The epilogue kernels against the composite at the cells' shapes
+    (max errors; forward and backward twice, bit for bit), then timed with
+    CUDA events, two input sets in turn (each past the 50 MB L2): the
+    kernels alone against their bytes bound, the composite's forward and
+    its forward + backward under autograd, the kernels' forward +
+    backward through ``EdgeEpilogue``, and, as a yardstick only,
+    ``torch.nn.functional.layer_norm`` (which the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sgnn_tpu_torch.ops import edge_epilogue as ee
+
+    out = {}
+    for name, (r, k, d, fill) in EPILOGUE_SHAPES.items():
+        sets = [epilogue_inputs(r, k, d, fill, seed, dev) for seed in (1, 2)]
+        o, b2, lns, lnb, mask, e, g_new, g_agg = sets[0]
+        live = int(mask.sum())
+
+        def fwd_bwd(fn, o, b2, lns, lnb, mask, e, g_new, g_agg):
+            leaves = [t.detach().requires_grad_(i != 4) for i, t in enumerate((o, b2, lns, lnb, mask, e))]
+            new_e, agg = fn(*leaves, k)
+            torch.autograd.backward((new_e, agg), (g_new, g_agg))
+            o_, b2_, lns_, lnb_, _, e_ = leaves
+            return new_e, agg, o_.grad, b2_.grad, lns_.grad, lnb_.grad, e_.grad
+
+        got = fwd_bwd(ee.edge_stage_epilogue, *sets[0])
+        again = fwd_bwd(ee.edge_stage_epilogue, *sets[0])
+        want = fwd_bwd(ee.epilogue_plain, *sets[0])
+        torch.cuda.synchronize()
+        names = ("new_e", "agg", "g_o", "g_b2", "g_lns", "g_lnb", "g_e")
+        got, again, want = ([t.detach() for t in run] for run in (got, again, want))
+        errs = {n: float((a - b).abs().max()) for n, a, b in zip(names, got, want)}
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not repeat:
+            raise AssertionError(f"edge_epilogue {name}: two runs differ")
+        if errs["new_e"] > 1e-4 or errs["agg"] > 1e-3 or errs["g_o"] > 1e-4:
+            raise AssertionError(f"edge_epilogue {name}: kernel against the composite {errs}")
+        if not torch.equal(got[6], g_new * mask):
+            raise AssertionError(f"edge_epilogue {name}: g_e is not g_new * mask")
+        # the parameter gradients: sums over every row in another order than
+        # PyTorch's, held to EPILOGUE_SUM_RTOL of the sum of their terms' sizes
+        worst = {}
+        for n, a, b, terms in zip(names[3:6], got[3:6], want[3:6], epilogue_sum_terms(o, b2, mask, g_new, g_agg,
+                                                                                      want[2], k)):
+            ratio = (a - b).abs() / (EPILOGUE_SUM_RTOL * terms + 1e-6)
+            worst[n] = float(ratio.max())
+            if worst[n] > 1:
+                raise AssertionError(f"edge_epilogue {name}: {n} beyond its limit ({worst[n]:.3f} of it)")
+        del got, again, want
+        bound = epilogue_bound(r, k, d, live)
+        args = [[t.detach() for t in s] for s in sets]
+        fwd = time_pair(lambda o, b2, lns, lnb, mask, e, *_: ee._launch_fwd(o, b2, lns, lnb, mask, e, k),
+                        lambda o, b2, lns, lnb, mask, e, *_: ee.epilogue_plain(o, b2, lns, lnb, mask, e, k),
+                        args, iters=50, warmup=5)
+        bwd_ms = time_ms(lambda o, b2, lns, lnb, mask, e, g_new, g_agg: ee._launch_bwd(o, b2, lns, mask, g_new,
+                                                                                        g_agg, k),
+                         args, iters=50, warmup=5)
+        both = time_pair(lambda *a: fwd_bwd(ee.edge_stage_epilogue, *a), lambda *a: fwd_bwd(ee.epilogue_plain, *a),
+                         args,
+                         iters=20, warmup=3)
+        lib_fwd = time_ms(lambda o, b2, lns, lnb, *_: F.layer_norm(o + b2, (d,), lns, lnb), args, iters=50,
+                          warmup=5)
+
+        def lib_both(o, b2, lns, lnb, mask, e, g_new, g_agg):
+            leaves = [t.detach().requires_grad_(True) for t in (o, b2, lns, lnb)]
+            F.layer_norm(leaves[0] + leaves[1], (d,), leaves[2], leaves[3]).backward(g_new)
+
+        lib_both_ms = time_ms(lib_both, args, iters=20, warmup=3)
+        out[name] = dict(
+            shape=[r, k, d], live_rows=live, fill=live / (r * k), max_abs_err=errs, repeat_bits=repeat,
+            param_grad_err_over_limit=worst, **bound,
+            fwd_ms=fwd["ms"], fwd_plain_ms=fwd["plain_ms"], fwd_runs=fwd["kernel_ms_runs"],
+            fwd_plain_runs=fwd["plain_ms_runs"], bwd_ms=bwd_ms, fwd_bwd_ms=both["ms"],
+            fwd_bwd_plain_ms=both["plain_ms"],
+            fwd_bound_share=bound["fwd_bound_ms"] / fwd["ms"], bwd_bound_share=bound["bwd_bound_ms"] / bwd_ms,
+            library_layer_norm_fwd_ms=lib_fwd, library_layer_norm_fwd_bwd_ms=lib_both_ms,
+        )
+        log(f"edge_epilogue {name} " + json.dumps(out[name]))
+        del sets, args, o, e, g_new, g_agg, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+# MeshGraphNets at its published widths (15 blocks, latent 128, two hidden
+# layers an MLP), on the smoke's dataset with config A's domain; the slot
+# widths the trainer derives from the training split
+MGN_MODEL = dict(architecture="meshgraphnet", layers=15, hidden_dim=128, input_sequence_length=2, mesh_radius=0.6,
+                 world_radius=0.75, batch_size=8, lr_init=1e-4, lr_decay_steps=5000000)
+EPILOGUE_STEPS = 5
+
+
+def epilogue_launches(root: Path, data: Path, dev) -> dict:
+    """The epilogue kernels' launches per step of the trainer's captured
+    ``TrainStep`` (the first step eager, then a capture and replays:
+    EPILOGUE_STEPS steps): MeshGraphNets at its published widths (2 edge
+    sets x 15 blocks), the dense f32 multi-scale model (one per dense edge
+    set: g2m, each m2m set of each block, m2g) and config A (one hidden
+    layer: the fused edge block, none)."""
+    import torch
+
+    from sgnn_tpu_torch.data.prefetch import to_device
+    from sgnn_tpu_torch.train import train as trainer
+    from sgnn_tpu_torch.train import train_multi_scale as tms
+
+    runs = {"mgn_f32": (trainer, train_config(root, data, "A", run_name="smoke_epilogue_mgn", **MGN_MODEL)),
+            "ms_dense_f32": (tms, ms_train_config(root, data, "dense_f32", run_name="smoke_epilogue_ms")),
+            "A": (trainer, train_config(root, data, "A", run_name="smoke_epilogue_A"))}
+    out = {}
+    for name, (mod, cfg) in runs.items():
+        built = mod.build_training(cfg, dev)
+        built.step_fn.capture = True
+        if name == "ms_dense_f32":
+            want = ms_blocks(built.batcher.graphs[0])
+        else:
+            want = 2 * MGN_MODEL["layers"] if name == "mgn_f32" else 0
+        source = built.epochs()
+        batches = [to_device(next(source), dev) for _ in range(EPILOGUE_STEPS)]
+        torch.cuda.synchronize()
+        before = epilogue_counts()
+        for i, batch in enumerate(batches):
+            built.step_fn(batch, i)
+        torch.cuda.synchronize()
+        got = {k: (v - before[k]) / EPILOGUE_STEPS for k, v in epilogue_counts().items()}
+        replays = built.step_fn.replays
+        built.step_fn.close()
+        del built, batches, source
+        torch.cuda.empty_cache()
+        if got != dict.fromkeys(EPILOGUE_KEYS, want) or replays != EPILOGUE_STEPS - 1:
+            raise AssertionError(f"edge_epilogue launches {name}: {got} a step ({replays} replays), expected {want}")
+        out[name] = got
+    log("edge_epilogue launches per step " + json.dumps(out))
+    return out
+
+
+def phase_epilogue(root: Path, data: Path, card) -> dict:
+    """Phase 13 (one ``edge_epilogue {...}`` JSON line)."""
+    import torch
+
+    out = dict(launches_per_step=epilogue_launches(root, data, card))
+    torch.cuda.empty_cache()
+    out["timed"] = phase_edge_epilogue(card)
+    log("edge_epilogue " + json.dumps(out))
+    return out
+
+
+def epilogue_summary(epi: dict, trained_a: dict, ms_runs: dict, ms_train: dict, ms_step_checks: dict) -> list:
+    """The epilogue kernels' entries of the kernel summary: checked and
+    timed at the MeshGraphNets world stage's shape (every shape under
+    ``by_shape``), launches by path (the rest in phases 11 and 12)."""
+    timed, launches = epi["timed"], epi["launches_per_step"]
+    out = []
+    for kname, direction, key in (("edge_epilogue_fwd", "fwd", "epilogue_fwd"),
+                                  ("edge_epilogue_bwd", "bwd", "epilogue_bwd")):
+        per_path = {f"train_{n}_per_step": launches[n][key] for n in launches}
+        per_path["train_A_per_step"] = trained_a["routes"]["captured"]["launches_per_step"][key]
+        per_path.update({f"ms_rollout_{n}": r["epilogue_launches"][key] for n, r in ms_runs.items()})
+        per_path.update({f"ms_train_{n}": r["epilogue_launches"][key] for n, r in ms_train.items()})
+        per_path.update({f"ms_card_vs_cpu_step_{n}": r["epilogue_launches"][key] for n, r in ms_step_checks.items()})
+        res = timed["mgn_world"]
+        ms = res["fwd_ms"] if direction == "fwd" else res["bwd_ms"]
+        bound = res[f"{direction}_bound_ms"]
+        out.append(dict(
+            name=kname, route="cuda", source="sgnn_tpu_torch/csrc/edge_epilogue.cu",
+            replaces="sgnn_tpu/models/epd_flat.py _edge_block_xla, sgnn_tpu/models/multi_scale.py "
+                     "_interact_dense_scales (their epilogue, XLA; no Pallas original)",
+            launches=launches["mgn_f32"][key], launches_by_path=per_path, dtype="float32", shape=res["shape"],
+            max_abs_err=res["max_abs_err"], param_grad_err_over_limit=res["param_grad_err_over_limit"],
+            tol={"new_e": 1e-4, "agg": 1e-3, "g_o": 1e-4, "g_e": 0.0, "param_grad_sum_rtol": EPILOGUE_SUM_RTOL},
+            ms=ms, plain_ms=res["fwd_plain_ms"] if direction == "fwd" else None,
+            fwd_bwd_ms=res["fwd_bwd_ms"], fwd_bwd_plain_ms=res["fwd_bwd_plain_ms"], bound_ms=bound, bound_by="bytes",
+            bound_share=bound / ms, library_ms=res["library_layer_norm_fwd_ms"] if direction == "fwd" else
+            res["library_layer_norm_fwd_bwd_ms"], bytes=res[f"{direction}_bytes"], flops=None,
+            by_shape={n: {f: t[f] for f in ("shape", "fill", f"{direction}_ms", f"{direction}_bound_ms",
+                                             f"{direction}_bound_share")} for n, t in timed.items()},
+        ))
+    return out
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
-    parser.add_argument("--only", choices=["row_gather_bwd", "parallel", "capacity"],
+    parser.add_argument("--only", choices=["row_gather_bwd", "parallel", "capacity", "edge_epilogue", "feed"],
                         help="run only this phase (after 1, 2 and 4)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
@@ -3493,6 +3796,9 @@ def main() -> int:
             return 0
         if only == "capacity":
             phase_capacity(root, data, card, smi)
+            return 0
+        if only == "edge_epilogue":
+            phase_epilogue(root, data, card)
             return 0
         train_rows = {CONFIGS[n]["compute_dtype"]: CONFIGS[n]["batch_size"] * nodes for n in CONFIGS}
 
@@ -3566,6 +3872,10 @@ def main() -> int:
         capacity = phase_capacity(root, data, card, smi)
         log(f"phase 12: {time.perf_counter() - t_start:.1f} s in all")
 
+        # 13. the edge stage's epilogue kernels: launches per step, checked, timed
+        epilogue = phase_epilogue(root, data, card)
+        log(f"phase 13: {time.perf_counter() - t_start:.1f} s in all")
+
     by_dtype = {trained[n][0]["compute_dtype"]: trained[n][0] for n in CONFIGS}
     kernels = []
     for kname, src, replaces in (
@@ -3600,6 +3910,7 @@ def main() -> int:
                                   {"train_B": trained["B"][0]["launches"]["take"],
                                    "rollout_bfloat16": rollouts["bfloat16"]["take_launches"]}))
     kernels.extend(bwd_gather_summary(bwd_gather, ms_train, trained["A"][0]))
+    kernels.extend(epilogue_summary(epilogue, trained["A"][0], ms_runs, ms_train, ms_step_checks))
     add_parallel_launches(kernels, parallel)
     add_capacity_launches(kernels, capacity)
     log("library " + json.dumps({"index_select": kernel_results["index_select"],

@@ -12,9 +12,11 @@ Each processor layer's edge stage is the fused edge-block kernel
 (``ops/edge_block.fused_edge_block``: the ``use_pallas=True`` branch of
 the JAX ``_process_decode``) where the edge MLP has one hidden layer
 (``num_mlp_layers == 1``, the single-scale configuration). Deeper edge
-MLPs take JAX's XLA edge stage in plain PyTorch (``_edge_block_plain``:
-``_edge_block_xla``, ``_mlp_tail_in`` and ``_recv_broadcast_add``), whose
-slot sum is a plain ``sum`` (no ``index_add_``).
+MLPs take JAX's XLA edge stage (``_edge_block_plain``: ``_edge_block_xla``,
+``_mlp_tail_in`` and ``_recv_broadcast_add``) in plain PyTorch up to its
+last product, and the epilogue after it (bias, LayerNorm, slot mask,
+residual, slot sum) in one kernel each way (``ops/edge_epilogue``) for f32
+latents on the card (D up to 128); the slot sum adds no ``index_add_``.
 
 ``compute_dtype=torch.bfloat16`` keeps the edge latents and gathered
 sender projections in bf16; node latents, LayerNorm moments, the node
@@ -84,6 +86,7 @@ from sgnn_tpu_torch.models.encode_process_decode import (
 )
 from sgnn_tpu_torch.nn.core import layer_norm
 from sgnn_tpu_torch.ops.edge_block import fused_edge_block
+from sgnn_tpu_torch.ops.edge_epilogue import edge_stage_epilogue
 from sgnn_tpu_torch.ops.row_gather import ordered_gather
 from sgnn_tpu_torch.ops.sym_gather import BANDED, forward_banded_index, packed_sym_gather, sym_gather_plan
 
@@ -280,25 +283,30 @@ class _RecvBroadcastAdd(torch.autograd.Function):
         return g, d_proj, None
 
 
-def _mlp_tail_in(mlp, h: torch.Tensor) -> torch.Tensor:
+def _mlp_tail_in(mlp, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The MLP's remaining layers given the first layer's preactivation,
-    activations kept in h's dtype (JAX's ``_mlp_tail_in``)."""
+    activations kept in h's dtype (JAX's ``_mlp_tail_in``), short of the
+    last Linear's bias: (its product, that bias); (h, None) for a
+    one-Linear MLP."""
     linears = mlp.linears
     if len(linears) == 1:
-        return h
+        return h, None
     dt = h.dtype
     x = torch.relu(h)
     for lin in linears[1:-1]:
         x = torch.relu(_DotWf32.apply(x, lin.weight.t()) + lin.bias.to(dt))
     last = linears[-1]
-    return _DotWf32.apply(x, last.weight.t()) + last.bias.to(dt)
+    return _DotWf32.apply(x, last.weight.t()), last.bias
 
 
 def _edge_block_plain(edge_fn, e, xj, proj_i, degrees, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """JAX's ``_edge_block_xla`` for any edge-MLP depth: (new_e, agg) with
     agg the f32 slot sum of the messages [M, D]. ``edge_fn`` is the
     ``Sequential(MLP, LayerNorm)`` whose first Linear reads the edge
-    latent as its third block of D rows."""
+    latent as its third block of D rows. The epilogue after the last
+    product (bias, LayerNorm, mask, residual, slot sum) is
+    ``ops/edge_epilogue``'s: one kernel each way where it takes the
+    latents."""
     edge_mlp, edge_ln = edge_fn[0], edge_fn[1]
     d = e.shape[-1]
     (_, _, w_e), b_e = split_first_layer(edge_mlp, (d, d, d))
@@ -306,9 +314,8 @@ def _edge_block_plain(edge_fn, e, xj, proj_i, degrees, k: int) -> Tuple[torch.Te
     dt = e.dtype
     h = _DotWf32.apply(e, w_e) + xj.to(dt)
     h = _RecvBroadcastAdd.apply(h, proj_i + b_e, k)
-    msg = layer_norm(_mlp_tail_in(edge_mlp, h), edge_ln.weight, edge_ln.bias)
-    msg = msg * _slot_mask(degrees, m, k).to(dt)
-    return e + msg, msg.reshape(m, k, d).float().sum(dim=1)
+    o, b2 = _mlp_tail_in(edge_mlp, h)
+    return edge_stage_epilogue(o, b2, edge_ln.weight, edge_ln.bias, _slot_mask(degrees, m, k).to(dt), e, k)
 
 
 def _edge_stage(block, x, e, xj, degrees, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

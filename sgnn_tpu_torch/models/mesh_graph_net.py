@@ -25,7 +25,9 @@ block-diagonal graph, as ``models/epd_flat``: each edge set is a dense
 ``[M*K, D]`` receiver-major slot layout whose mask is ``slot < degree``;
 each edge stage is ``epd_flat._edge_block_plain`` over the first Linear in
 split form (``[v_j, v_i, e]``: the sender projection gathered per slot, the
-receiver projection broadcast over the slots), its slot sum the aggregate.
+receiver projection broadcast over the slots), its slot sum the aggregate;
+in f32 its epilogue (bias, LayerNorm, mask, residual, slot sum) is one
+kernel each way (``ops/edge_epilogue``).
 """
 
 from __future__ import annotations

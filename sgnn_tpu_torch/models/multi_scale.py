@@ -49,6 +49,7 @@ from sgnn_tpu_torch.models.encode_process_decode import (
     split_first_layer,
 )
 from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
+from sgnn_tpu_torch.ops.edge_epilogue import edge_stage_epilogue
 from sgnn_tpu_torch.ops.row_gather import ordered_gather, planned_gather, sorted_gather, sorted_sum
 from sgnn_tpu_torch.physics.multi_scale_graph import DenseEdges, DenseStaticGraph, PaddedEdges, StaticGraph
 
@@ -91,18 +92,24 @@ class MultiScaleGNN(nn.Module):
         self.prediction_head = MLP(d, hidden, cfg.node_out, **kw)
 
 
-def _mlp_tail_in(mlp: MLP, h: torch.Tensor) -> torch.Tensor:
-    """``mlp_tail`` that keeps the activations in h's dtype (weights cast
-    to it); identical to ``mlp_tail`` in f32."""
+def _mlp_tail_product(mlp: MLP, h: torch.Tensor):
+    """``_mlp_tail_in`` short of the last Linear's bias: (its product, that
+    bias); (h, None) for a one-Linear MLP."""
     dt = h.dtype
     linears = mlp.linears
     if len(linears) == 1:
-        return h
+        return h, None
     x = torch.relu(h)
     for lin in linears[1:-1]:
         x = torch.relu(x @ lin.weight.t().to(dt) + lin.bias.to(dt))
-    last = linears[-1]
-    return x @ last.weight.t().to(dt) + last.bias.to(dt)
+    return x @ linears[-1].weight.t().to(dt), linears[-1].bias
+
+
+def _mlp_tail_in(mlp: MLP, h: torch.Tensor) -> torch.Tensor:
+    """``mlp_tail`` that keeps the activations in h's dtype (weights cast
+    to it); identical to ``mlp_tail`` in f32."""
+    o, b = _mlp_tail_product(mlp, h)
+    return o if b is None else o + b.to(h.dtype)
 
 
 def _edge_mlp_in(block: InteractionNetwork, d: int, dt: torch.dtype):
@@ -193,8 +200,10 @@ def _interact_dense_scales(
 ):
     """One interaction step over a union of dense edge sets (one per m2m
     scale; a single set is ``_interact_dense``). The edge update runs per
-    set on ``[R, K, .]`` slots; each set's masked slot sum goes through
-    the node MLP's aggregate block (f32 products of the edge dtype's
+    set on ``[R, K, .]`` slots, its epilogue after the last product (bias,
+    LayerNorm, mask, residual, slot sum) one kernel each way for f32
+    latents (``ops/edge_epilogue``); each set's masked slot sum goes
+    through the node MLP's aggregate block (f32 products of the edge dtype's
     values, summed in f32) and ONE sorted sum over the ascending receiver
     rows writes it back to the full grid; the node update runs once on the
     sum over the sets. ``x_sender_table``: the table the senders and the
@@ -211,15 +220,16 @@ def _interact_dense_scales(
     w_agg = _agg_weight(block, d).to(dt).float()
     agg_hn = torch.zeros((n, d), dtype=torch.float32, device=x.device)
     new_es = []
+    ln = block.edge_fn[1]
     for e, de in zip(es, des):
         maskf = de.mask[..., None].to(dt)
         proj_i = sorted_gather(proj_i_full, de.recv, n)  # [R, H]
         xj = planned_gather(proj_j, de.senders, de.tsp_rows, de.tsp_node, de.tsp_mask, xs.shape[0])  # [R, K, H]
         h = proj_i.to(dt)[:, None, :] + xj + e @ w_e + b_e
-        msg = _edge_msg(block, h, maskf)
-        new_es.append((e + msg) * maskf)
-        agg_rows = msg.float().sum(dim=1) @ w_agg  # [R, D]
-        agg_hn = agg_hn + sorted_sum(agg_rows, de.recv, n)
+        o, b2 = _mlp_tail_product(block.edge_fn[0], h)
+        new_e, agg = edge_stage_epilogue(o, b2, ln.weight, ln.bias, maskf, e, de.mask.shape[-1])  # agg f32 [R, D]
+        new_es.append(new_e)
+        agg_hn = agg_hn + sorted_sum(agg @ w_agg, de.recv, n)
     return _node_update(block, x, agg_hn), new_es
 
 
