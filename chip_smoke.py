@@ -2771,6 +2771,7 @@ def gp_ms_route(root: Path, data: Path, name: str, card, smi: str):
     rollout against the one-device rollout (``gp_ms_rollout_check``)."""
     import torch
 
+    from sgnn_tpu_torch.data.loader import load_metadata
     from sgnn_tpu_torch.ops import row_gather as rg
     from sgnn_tpu_torch.train import train_multi_scale as tms
 
@@ -2781,7 +2782,7 @@ def gp_ms_route(root: Path, data: Path, name: str, card, smi: str):
     built = tms.build_training(cfg, card, devices=devices)
     blocks = gp_ms_blocks(built.graphs[0])
     del built
-    valid = tms.make_loader(cfg, tms.ms_config_from(cfg, tms.load_metadata(data)), "valid")
+    valid = tms.make_loader(cfg, tms.ms_config_from(cfg, load_metadata(data)), "valid")
     val_steps = sum(p.shape[0] - cfg.input_sequence_length for p, _, _ in valid.trajectories)
     rollout_steps = val_steps * (TRAIN_STEPS // SAVE_EVERY)
     val_blocks = 2 + MS_MODEL["layers"]  # the validation plans COO

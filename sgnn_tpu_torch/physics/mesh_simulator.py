@@ -27,7 +27,8 @@ particles, with the port's head, loss, noise and Euler step
     |x_ij|] / mesh_radius`` with u the first frame (the mesh space) and x
     the last position, world edge features ``[x_ij, |x_ij|] /
     world_radius``, each ``sender - receiver``;
-  * the head emits dim normalised accelerations and one strain.
+  * the head emits dim normalised accelerations and one strain;
+  * ``mesh_rollout`` rolls a trajectory out with its mesh held fixed.
 
 ``MeshSimulator.world_edge_count`` (int64 [2], not in the state dict) is a
 device-side running sum of the valid world edges and of the world slots
@@ -39,7 +40,7 @@ benchmark's ``world_slot_fill.train``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +58,7 @@ from sgnn_tpu_torch.physics.simulator import (
     decoder_postprocess,
     inverse_decoder_postprocess,
 )
+from sgnn_tpu_torch.physics.rollout import _roll_out, advance_window
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 from sgnn_tpu_torch.utils.profiling import trace_region
 
@@ -319,6 +321,40 @@ def predict_positions(
                                   None if node_mask is None else node_mask[None],
                                   StaticMesh(*(t[None] for t in mesh)))
     return decoder_postprocess(stats, acc[0], current_positions), strain[0]
+
+
+def mesh_rollout_step(sim: MeshSimulator, cfg: MeshSimulatorConfig, stats: NormStats, inference_mode: str):
+    """``physics/rollout.rollout_step`` of a MeshGraphNets simulator, whose
+    step also takes the trajectory's static mesh (a ``StaticMesh`` of
+    tensors)."""
+
+    def step(window, gt_pos, gt_strain, *, particle_types, node_mask, erosional, mesh):
+        next_pos, strain = predict_positions(sim, cfg, stats, window, particle_types, node_mask, mesh)
+        return advance_window(window, next_pos, strain, gt_pos, gt_strain, erosional, inference_mode)
+
+    return step
+
+
+def mesh_rollout(
+    sim: MeshSimulator,
+    cfg: MeshSimulatorConfig,
+    stats: NormStats,
+    positions,  # [N, T, dim] full ground-truth trajectory
+    particle_types,  # [N]
+    strains,  # [T, N]
+    mesh: StaticMesh,  # the trajectory's (``build_mesh`` of its first frame)
+    node_mask=None,  # [N] bool
+    inference_mode: str = "autoregressive",
+    device: Device = None,
+    capture: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """``physics/rollout.rollout`` of a MeshGraphNets simulator: the
+    trajectory's static mesh is held fixed over the steps
+    (``mesh_rollout_step``)."""
+    return _roll_out(sim, cfg, stats, mesh_rollout_step, "mesh_rollout", positions, particle_types, strains,
+                     node_mask, inference_mode, device, capture,
+                     lambda dev, mask: {"node_mask": mask, "mesh": StaticMesh(*(torch.as_tensor(a, device=dev)
+                                                                               for a in mesh))})
 
 
 def stack_meshes(meshes: List[StaticMesh]) -> StaticMesh:

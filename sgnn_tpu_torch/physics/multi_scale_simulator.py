@@ -42,7 +42,6 @@ from sgnn_tpu_torch.models.multi_scale import (
     multi_scale_gnn_apply_dense,
 )
 from sgnn_tpu_torch.nn.core import Embedding
-from sgnn_tpu_torch.physics import captured_step
 from sgnn_tpu_torch.physics.multi_scale_graph import (
     DenseStaticGraph,
     MultiScaleConfig,
@@ -50,7 +49,7 @@ from sgnn_tpu_torch.physics.multi_scale_graph import (
     StaticGraph,
     sender_order,
 )
-from sgnn_tpu_torch.physics.rollout import EROSIONAL_PARTICLE_ID, advance_window, cumulative_rmse, per_step_rmse
+from sgnn_tpu_torch.physics.rollout import _roll_out, advance_window
 from sgnn_tpu_torch.physics.simulator import (
     _DTYPES,
     NormStats,
@@ -59,7 +58,6 @@ from sgnn_tpu_torch.physics.simulator import (
     time_diff,
 )
 from sgnn_tpu_torch.utils.device import Device, resolve_device
-from sgnn_tpu_torch.utils.profiling import trace_region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,7 +294,6 @@ def ms_rollout_step(sim: MultiScaleSimulator, cfg: MultiScaleSimulatorConfig, st
     return step
 
 
-@torch.inference_mode()
 def ms_rollout(
     sim: MultiScaleSimulator,
     cfg: MultiScaleSimulatorConfig,
@@ -316,44 +313,8 @@ def ms_rollout(
     copied into the captured step's static buffers); ``capture=False``
     runs the eager loop. Erosional particles (type -1) follow the ground truth;
     'one_step' shifts the window with the ground truth. Returns the JAX
-    ``ms_rollout``'s keys as tensors, per-step RMSE included."""
-    if inference_mode not in ("autoregressive", "one_step"):
-        raise ValueError(f"Unknown inference_mode: {inference_mode}")
-    dev = resolve_device(device)
-    if sim.device != dev:
-        raise ValueError(f"simulator lives on {sim.device}, rollout asked for {dev}")
-    with trace_region("rollout"):
-        with trace_region("rollout.inputs"):
-            positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
-            particle_types = torch.as_tensor(particle_types, device=dev)
-            strains = torch.as_tensor(strains, dtype=torch.float32, device=dev)
-            if node_mask is not None:
-                node_mask = torch.as_tensor(node_mask, dtype=torch.bool, device=dev)
-            graph = graph_to(graph, dev)
-
-        s = cfg.input_sequence_length
-        window = positions[:, :s]
-        gt_positions = positions[:, s:].transpose(0, 1)  # [T-S, N, dim]
-        gt_strains = strains[s:]
-        erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
-
-        fixed = dict(particle_types=particle_types, erosional=erosional, graph=graph)
-        key = ("ms_rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
-        pred_positions, pred_strains = captured_step.roll(
-            ms_rollout_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
-            capture=capture, owner=sim, key=key,
-        )
-        return {
-            "initial_positions": positions[:, :s].transpose(0, 1),
-            "initial_strains": strains[:s],
-            "predicted_rollout": pred_positions,
-            "ground_truth_rollout": gt_positions,
-            "predicted_strain": pred_strains,
-            "ground_truth_strain": gt_strains,
-            "particle_types": particle_types,
-            "rmse_position": cumulative_rmse(pred_positions, gt_positions, node_mask),
-            "rmse_strain": cumulative_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
-            # the reference's multi-scale evaluator scores per step
-            "rmse_position_per_step": per_step_rmse(pred_positions, gt_positions, node_mask),
-            "rmse_strain_per_step": per_step_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
-        }
+    ``ms_rollout``'s keys as tensors, per-step RMSE included
+    (``physics/rollout._roll_out``)."""
+    return _roll_out(sim, cfg, stats, ms_rollout_step, "ms_rollout", positions, particle_types, strains, node_mask,
+                     inference_mode, device, capture, lambda dev, mask: {"graph": graph_to(graph, dev)},
+                     per_step=True)

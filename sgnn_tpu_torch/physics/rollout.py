@@ -8,9 +8,11 @@ a CUDA graph on the card and replays it
 (``physics/captured_step.py``), and on the CPU runs the same step over
 the same static buffers; ``capture=False`` takes the eager Python loop.
 A call is one span ``rollout`` (a request's root: ``utils/profiling``),
-with ``rollout.inputs`` (the arrays placed on the device) inside it. A
-MeshGraphNets simulator rolls out with its trajectory's static mesh
-(``mesh=``, ``mesh_rollout_step``), fixed over the steps.
+with ``rollout.inputs`` (the arrays placed on the device) inside it.
+``rollout``, ``mesh_simulator.mesh_rollout`` and
+``multi_scale_simulator.ms_rollout`` share one body (``_roll_out``): each
+passes its step, the fixed inputs its step takes besides the particle
+types and the erosional mask, and whether it adds the per-step RMSE.
 Semantics kept from the reference evaluation loop:
 
   * erosional particles (type -1) follow the ground-truth trajectory and
@@ -22,11 +24,11 @@ Semantics kept from the reference evaluation loop:
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
-from sgnn_tpu_torch.physics import captured_step, mesh_simulator
+from sgnn_tpu_torch.physics import captured_step
 from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
     NormStats,
@@ -87,38 +89,27 @@ def rollout_step(sim: LearnedSimulator, cfg: SimulatorConfig, stats: NormStats, 
     return step
 
 
-def mesh_rollout_step(sim, cfg, stats: NormStats, inference_mode: str):
-    """``rollout_step`` of a MeshGraphNets simulator
-    (``physics/mesh_simulator``), whose step also takes the trajectory's
-    static mesh (``fixed["mesh"]``, a ``StaticMesh`` of tensors)."""
-
-    def step(window, gt_pos, gt_strain, *, particle_types, node_mask, erosional, mesh):
-        next_pos, strain = mesh_simulator.predict_positions(sim, cfg, stats, window, particle_types, node_mask, mesh)
-        return advance_window(window, next_pos, strain, gt_pos, gt_strain, erosional, inference_mode)
-
-    return step
-
-
 @torch.inference_mode()
-def rollout(
-    sim: LearnedSimulator,
-    cfg: SimulatorConfig,
+def _roll_out(
+    sim: torch.nn.Module,
+    cfg,
     stats: NormStats,
+    make_step: Callable,  # (sim, cfg, stats, inference_mode) -> the step
+    name: str,  # the captured step's key
     positions,  # [N, T, dim] full ground-truth trajectory
     particle_types,  # [N]
     strains,  # [T, N]
-    node_mask=None,  # [N] bool
-    inference_mode: str = "autoregressive",
-    device: Device = None,
-    capture: bool = True,
-    mesh: Optional[mesh_simulator.StaticMesh] = None,
+    node_mask,  # [N] bool or None
+    inference_mode: str,
+    device: Device,
+    capture: bool,
+    statics: Callable,  # (device, node_mask on it) -> the step's other fixed inputs, on the device
+    per_step: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Roll the model out over a trajectory on ``device`` (CUDA unless
-    told otherwise; ``sim`` and ``stats`` must already live there), its
-    step captured in a CUDA graph on the card; ``capture=False`` runs the
-    eager loop. ``mesh``: the trajectory's static mesh, for a MeshGraphNets
-    simulator (``mesh_rollout_step``). Returns the reference's output dict
-    as tensors."""
+    """The body of every rollout: the inputs placed on ``device`` (span
+    ``rollout.inputs``), the window, the erosional mask, the step rolled out
+    through its captured step, and the reference's output dict; with
+    ``per_step`` the per-step RMSE too (the multi-scale evaluator's)."""
     if inference_mode not in ("autoregressive", "one_step"):
         raise ValueError(f"Unknown inference_mode: {inference_mode}")
     dev = resolve_device(device)
@@ -131,8 +122,7 @@ def rollout(
             strains = torch.as_tensor(strains, dtype=torch.float32, device=dev)
             if node_mask is not None:
                 node_mask = torch.as_tensor(node_mask, dtype=torch.bool, device=dev)
-            if mesh is not None:
-                mesh = mesh_simulator.StaticMesh(*(torch.as_tensor(a, device=dev) for a in mesh))
+            fixed = statics(dev, node_mask)
 
         s = cfg.input_sequence_length
         window = positions[:, :s]  # [N, S, dim]
@@ -140,17 +130,13 @@ def rollout(
         gt_strains = strains[s:]  # [T-S, N]
         erosional = (particle_types == EROSIONAL_PARTICLE_ID)[:, None]
 
-        fixed = dict(particle_types=particle_types, node_mask=node_mask, erosional=erosional)
-        make_step = rollout_step
-        if mesh is not None:
-            fixed["mesh"], make_step = mesh, mesh_rollout_step
-        key = ("rollout", cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
+        fixed = dict(particle_types=particle_types, erosional=erosional, **fixed)
+        key = (name, cfg, inference_mode, captured_step.tensors_key(stats), captured_step.module_key(sim))
         pred_positions, pred_strains = captured_step.roll(
             make_step(sim, cfg, stats, inference_mode), window, gt_positions, gt_strains, fixed,
             capture=capture, owner=sim, key=key,
         )
-
-        return {
+        out = {
             "initial_positions": positions[:, :s].transpose(0, 1),
             "initial_strains": strains[:s],
             "predicted_rollout": pred_positions,  # [T-S, N, dim]
@@ -161,3 +147,27 @@ def rollout(
             "rmse_position": cumulative_rmse(pred_positions, gt_positions, node_mask),
             "rmse_strain": cumulative_rmse(pred_strains[..., None], gt_strains[..., None], node_mask),
         }
+        if per_step:
+            out["rmse_position_per_step"] = per_step_rmse(pred_positions, gt_positions, node_mask)
+            out["rmse_strain_per_step"] = per_step_rmse(pred_strains[..., None], gt_strains[..., None], node_mask)
+        return out
+
+
+def rollout(
+    sim: LearnedSimulator,
+    cfg: SimulatorConfig,
+    stats: NormStats,
+    positions,  # [N, T, dim] full ground-truth trajectory
+    particle_types,  # [N]
+    strains,  # [T, N]
+    node_mask=None,  # [N] bool
+    inference_mode: str = "autoregressive",
+    device: Device = None,
+    capture: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Roll the model out over a trajectory on ``device`` (CUDA unless
+    told otherwise; ``sim`` and ``stats`` must already live there), its
+    step captured in a CUDA graph on the card; ``capture=False`` runs the
+    eager loop. Returns the reference's output dict as tensors."""
+    return _roll_out(sim, cfg, stats, rollout_step, "rollout", positions, particle_types, strains, node_mask,
+                     inference_mode, device, capture, lambda dev, mask: {"node_mask": mask})

@@ -1,27 +1,32 @@
-"""Single-scale training, validation and rollout entry point.
+"""The trainer of every model family: training, validation, rollout and the CLI.
 
-Port of ``sgnn_tpu/train/train.py`` (single device): ``simulator_config_from``,
-``lr_schedule``, ``make_train_step`` (the loss of ``_make_step_body``,
-its backward and an Adam update), ``build_training`` (the model,
-optimizer, step and batcher ``train`` runs), ``train``, ``make_rollout``
-(the counterpart of ``make_jit_rollout``: the rollout whose step is
-captured in a CUDA graph on the card, which ``predict`` and the
-validation take), ``evaluate_split``, ``predict`` and the CLI::
+Port of ``sgnn_tpu/train/train.py`` and of the loop
+``sgnn_tpu/train/train_multi_scale.py`` repeats (single device):
+``lr_schedule``, ``make_train_step`` (a family's loss, its backward and an
+Adam update), ``build_training`` (the model, optimizer, step and batcher
+``train`` runs), ``train``, ``evaluate_split``, ``predict`` and the CLI::
 
   python -m sgnn_tpu_torch.train.train --config configs/taylor2d_single_scale.yaml \\
       --mode train|valid|rollout [--model_file NAME] [--device cuda|cpu]
 
+What differs between the model families is one ``Family`` each: ``GNS``
+(the single-scale model) and ``MESHGRAPHNET`` (``physics/mesh_simulator.py``),
+which ``cfg.architecture`` picks (``gns``, ``meshgraphnet``), and
+``train_multi_scale.MULTI_SCALE``, which that module's entry point passes.
+A family gives the simulator's config and init, the loss, the training
+batcher and the split loader, the rollout of one loader item and how it is
+scored, its words in the training banner, and its graph-parallel wiring.
+A new model configuration is its simulator module, its family entry and
+its tests; the loop stays as it is.
+
 Each training step draws random-walk noise from a ``torch.Generator``
-seeded from ``cfg.seed``, runs the flat forward (every layer's edge stage
-is the fused edge-block kernel, its backward the edge-block backward
-kernel; the sender gathers sorted once per forward so that their
-backward adds with no atomics), takes the masked position + strain loss,
-its gradients, and one ``torch.optim.Adam`` update at ``lr = sched(step)``,
-the step counted before the update as optax does. On the card the
-batches come through ``data/prefetch.DevicePrefetcher`` (depth 2, as
-JAX's trainer) and the step is captured in a CUDA graph and replayed
-(``train/captured_train_step.TrainStep``; Adam is capturable, its lr a
-device tensor); ``inner_steps`` are that many replays. Best-only
+seeded from ``cfg.seed``, runs the family's forward, takes the masked
+position + strain loss, its gradients, and one ``torch.optim.Adam`` update
+at ``lr = sched(step)``, the step counted before the update as optax does.
+On the card the batches come through ``data/prefetch.DevicePrefetcher``
+(depth 2, as JAX's trainers) and the step is captured in a CUDA graph and
+replayed (``train/captured_train_step.TrainStep``; Adam is capturable, its
+lr a device tensor); ``inner_steps`` are that many replays. Best-only
 checkpoints on the validation rollout loss, a final checkpoint when no
 validation ran or on interrupt, resume from ``model_file``.
 
@@ -34,7 +39,8 @@ by default that many distinct CUDA devices, ``parallel/mesh.make_mesh``):
     the global batch's noise, gradients summed in replica order, one Adam
     step); ``batch_size`` must divide by P;
   * ``graph_parallel: P`` (with ``batch_size: 1``, and not with
-    ``data_parallel``) plans one static slab partition over the training
+    ``data_parallel``) is the family's own (``Family.partitioned``). The
+    single-scale one plans one static slab partition over the training
     split's first, middle and last frames (its radius widened by 4 sigma of
     the noise walk), x-sorts each sample into it (``partition_sample``) and
     trains with ``parallel/edge_partition.PartitionedTrainStep``, whose halo
@@ -46,23 +52,22 @@ by default that many distinct CUDA devices, ``parallel/mesh.make_mesh``):
 With every replica or shard on one device, the step is captured as one
 CUDA graph.
 
-The capacity knobs reach the model through the config: ``remat`` (the
-layers' recomputation in the backward, ``models/epd_flat.py``) and
-``band_nodes`` (the banded gathers, ``ops/sym_gather.py``). With a band the
-loss adds ``train/band_violations`` (edges that broke it, counted inside
-the captured step; a graph-parallel step folds them into its halo guard,
-which rejects the step), and the trainer warns at a log point where it is
-above 0. ``debug_graph: true`` audits the first training sample's graph
-before training (``utils/graph_debug.audit_neighbor_list``).
+The capacity knobs reach the single-scale model through the config:
+``remat`` (the layers' recomputation in the backward,
+``models/epd_flat.py``) and ``band_nodes`` (the banded gathers,
+``ops/sym_gather.py``). With a band the loss adds ``train/band_violations``
+(edges that broke it, counted inside the captured step; a graph-parallel
+step folds them into its halo guard, which rejects the step), and the
+trainer warns at a log point where it is above 0. ``debug_graph: true``
+audits the first training sample's graph before training
+(``utils/graph_debug.audit_neighbor_list``).
 
-``architecture: meshgraphnet`` trains and rolls out MeshGraphNets
-(``physics/mesh_simulator.py``) through the same feed, step, validation
-and ``predict``: ``MeshSampleBatcher`` attaches each sample's static mesh,
-the loss is ``make_mesh_loss_fn``'s, and each rolled-out trajectory's mesh
-is built from its first frame (``make_rollout``). Its slot widths
+MeshGraphNets' batches carry each sample's static mesh
+(``MeshSampleBatcher``), and each rolled-out trajectory's mesh is built
+from its first frame (``make_mesh_rollout``). Its slot widths
 (``mesh_slots``, ``world_search_slots``, ``world_slots``) are derived from
 the training split where the config leaves them unset; it runs on one
-device in f32 (``check_architecture``).
+device in f32 (``check_meshgraphnet``).
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,7 +91,7 @@ from sgnn_tpu_torch.data.loader import (
     load_metadata,
     load_trajectories,
 )
-from sgnn_tpu_torch.data.prefetch import DevicePrefetcher
+from sgnn_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from sgnn_tpu_torch.models.epd_flat import check_remat
 from sgnn_tpu_torch.parallel.data_parallel import DataParallelStep
 from sgnn_tpu_torch.parallel.edge_partition import (
@@ -99,7 +104,13 @@ from sgnn_tpu_torch.parallel.edge_partition import (
 )
 from sgnn_tpu_torch.parallel.mesh import Mesh, make_mesh
 from sgnn_tpu_torch.physics import mesh_simulator
-from sgnn_tpu_torch.physics.mesh_simulator import MeshSimulatorConfig, build_mesh, derive_slots, mesh_simulator_init
+from sgnn_tpu_torch.physics.mesh_simulator import (
+    MeshSimulatorConfig,
+    build_mesh,
+    derive_slots,
+    mesh_rollout,
+    mesh_simulator_init,
+)
 from sgnn_tpu_torch.physics.rollout import rollout as rollout_fn
 from sgnn_tpu_torch.physics.simulator import (
     LearnedSimulator,
@@ -123,6 +134,32 @@ ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8  # optax.adam's defaults
 PREFETCH_DEPTH = 2  # batches staged ahead, as JAX's trainers
 REJECTION_LIMIT = 20  # consecutive rejected log points before a graph-parallel run aborts
+
+
+@dataclass(frozen=True)
+class Family:
+    """What differs between the model families the one trainer runs."""
+
+    title: str  # in the training banner and the rollout summary
+    config_from: Callable  # (cfg, metadata) -> the simulator's config
+    init: Callable  # (sim_cfg, *, generator, device) -> the simulator
+    # (sim, sim_cfg, stats, cfg) -> loss_fn(batch, noise, denom=None) -> (loss, aux); aux holds
+    # train/loss-position and train/loss-strain, which the step's log line prints
+    loss: Callable
+    batcher: Callable  # (cfg, sim_cfg, batch_size) -> the training split's batcher
+    loader: Callable  # (cfg, sim_cfg, split) -> the split's trajectories, one loader item each
+    # (sim_cfg, stats, mode, device) -> rollout(sim, positions, types, strains, node_mask, graph=None):
+    # one loader item's rollout (``graph``: the item's static graph, where its loader gives one)
+    rollout: Callable
+    banner: Callable  # (cfg, sim_cfg) -> the family's words in the training banner
+    # scores a rollout by its per-step RMSE and the rollouts' times (the multi-scale
+    # evaluator), else by the cumulative RMSE
+    per_step: bool = False
+    audit: Optional[Callable] = None  # (batcher, sim_cfg, radius): ``debug_graph``'s audit
+    # graph_parallel: (cfg, sim, sim_cfg, stats, optimizer, noise_gen, mesh, batch_size) -> Training
+    partitioned: Optional[Callable] = None
+    # graph_parallel in predict: (cfg, sim_cfg, stats, loader, device, devices) -> rollout; None ignores it
+    partitioned_predict: Optional[Callable] = None
 
 
 def simulator_config_from(cfg: TrainConfig, metadata: dict) -> SimulatorConfig:
@@ -178,31 +215,27 @@ def _domain(cfg: TrainConfig, metadata: dict, radius: float):
     return (tuple(lo - pad), tuple(hi + pad))
 
 
-ARCHITECTURES = ("gns", "meshgraphnet")
+def check_meshgraphnet(cfg: TrainConfig) -> None:
+    """MeshGraphNets runs on one device, in f32, without the single-scale
+    model's capacity knobs."""
+    unsupported = {"data_parallel": cfg.data_parallel > 1, "graph_parallel": cfg.graph_parallel > 1,
+                   "remat": check_remat(cfg.remat) is not False, "band_nodes": cfg.band_nodes is not None,
+                   "symmetric_gather": bool(cfg.symmetric_gather), "debug_graph": cfg.debug_graph,
+                   "compute_dtype": cfg.compute_dtype != "float32"}
+    named = sorted(k for k, v in unsupported.items() if v)
+    if named:
+        raise ValueError(f"architecture meshgraphnet does not take {', '.join(named)}")
 
 
-def check_architecture(cfg: TrainConfig) -> None:
-    """The architecture is known; MeshGraphNets runs on one device, in
-    f32, without the single-scale model's capacity knobs."""
-    if cfg.architecture not in ARCHITECTURES:
-        raise ValueError(f"architecture must be one of {ARCHITECTURES}, got {cfg.architecture!r}")
-    if cfg.architecture == "meshgraphnet":
-        unsupported = {"data_parallel": cfg.data_parallel > 1, "graph_parallel": cfg.graph_parallel > 1,
-                       "remat": check_remat(cfg.remat) is not False, "band_nodes": cfg.band_nodes is not None,
-                       "symmetric_gather": bool(cfg.symmetric_gather), "debug_graph": cfg.debug_graph,
-                       "compute_dtype": cfg.compute_dtype != "float32"}
-        named = sorted(k for k, v in unsupported.items() if v)
-        if named:
-            raise ValueError(f"architecture meshgraphnet does not take {', '.join(named)}")
-
-
-def mesh_config_from(cfg: TrainConfig, metadata: dict, data_dir: Path) -> MeshSimulatorConfig:
-    """The MeshGraphNets simulator's config; slot widths the config leaves
-    unset are derived from the training split (``derive_slots``) and
-    printed."""
+def mesh_config_from(cfg: TrainConfig, metadata: dict) -> MeshSimulatorConfig:
+    """The MeshGraphNets simulator's config (``check_meshgraphnet`` first);
+    slot widths the config leaves unset are derived from the training split
+    (``derive_slots``) and printed."""
+    check_meshgraphnet(cfg)
     slots = {k: getattr(cfg, k) for k in ("mesh_slots", "world_search_slots", "world_slots")}
     if None in slots.values():
-        derived = derive_slots(load_trajectories(data_dir / "train.npz"), cfg.mesh_radius, cfg.world_radius)
+        derived = derive_slots(load_trajectories(Path(cfg.data_path) / "train.npz"), cfg.mesh_radius,
+                               cfg.world_radius)
         slots = {k: derived[k] if v is None else v for k, v in slots.items()}
         print(f"meshgraphnet slot widths from the training split: {slots}")
     return MeshSimulatorConfig(
@@ -220,20 +253,6 @@ def mesh_config_from(cfg: TrainConfig, metadata: dict, data_dir: Path) -> MeshSi
         cell_capacity=cfg.cell_capacity,
         **slots,
     )
-
-
-def model_config_from(cfg: TrainConfig, metadata: dict, data_dir: Path):
-    """The simulator config of ``cfg.architecture``."""
-    check_architecture(cfg)
-    if cfg.architecture == "meshgraphnet":
-        return mesh_config_from(cfg, metadata, data_dir)
-    return simulator_config_from(cfg, metadata)
-
-
-def model_init(sim_cfg, cfg: TrainConfig, device: torch.device) -> torch.nn.Module:
-    """The simulator of ``sim_cfg``'s architecture, its weights from ``cfg.seed``."""
-    init = mesh_simulator_init if isinstance(sim_cfg, MeshSimulatorConfig) else simulator_init
-    return init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=device)
 
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
@@ -258,8 +277,7 @@ def make_optimizer(sim: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam:
     return torch.optim.Adam(sim.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
-def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+batch_to_device = to_device  # a host batch on a device: its arrays (and a mesh's) as tensors
 
 
 def make_loss_fn(sim: LearnedSimulator, sim_cfg: SimulatorConfig, stats: NormStats, cfg: TrainConfig) -> Callable:
@@ -304,28 +322,31 @@ def make_mesh_loss_fn(sim: torch.nn.Module, sim_cfg: MeshSimulatorConfig, stats:
 
 
 def make_train_step(
-    sim: LearnedSimulator,
-    sim_cfg: SimulatorConfig,
+    sim: torch.nn.Module,
+    sim_cfg,
     stats: NormStats,
     cfg: TrainConfig,
     optimizer: torch.optim.Optimizer,
     generator: Optional[torch.Generator] = None,
+    family: Optional[Family] = None,
 ) -> TrainStep:
-    """The step ``(batch, step, noise=None) -> metrics``: updates ``sim``'s
-    parameters in place through ``optimizer``, captured in a CUDA graph on
-    the card (``TrainStep``). ``step`` is the count of updates before this
-    one (the schedule's argument); ``noise`` replaces the draw from
-    ``generator`` (the parity tests inject JAX's). Metrics are 0-d tensors
-    left on the device. A MeshGraphNets config takes its own loss."""
-    make = make_mesh_loss_fn if isinstance(sim_cfg, MeshSimulatorConfig) else make_loss_fn
-    return TrainStep(make(sim, sim_cfg, stats, cfg), optimizer, lr_schedule(cfg), cfg.noise_std, generator)
+    """The step ``(batch, step, noise=None) -> metrics`` of ``family``'s loss
+    (default: ``cfg.architecture``'s): updates ``sim``'s parameters in place
+    through ``optimizer``, captured in a CUDA graph on the card
+    (``TrainStep``). ``step`` is the count of updates before this one (the
+    schedule's argument); ``noise`` replaces the draw from ``generator``
+    (the parity tests inject JAX's). Metrics are 0-d tensors left on the
+    device."""
+    loss = (family or family_of(cfg)).loss(sim, sim_cfg, stats, cfg)
+    return TrainStep(loss, optimizer, lr_schedule(cfg), cfg.noise_std, generator)
 
 
 @dataclass
 class Training:
-    """What ``build_training`` wires together for ``train`` (of either
-    family: the multi-scale trainer fills it with its own simulator and
-    batcher); ``mesh`` and ``spec`` for a parallel run."""
+    """What ``build_training`` wires together for ``train``; ``mesh`` for a
+    parallel run, ``spec`` for a graph-parallel one (whose ``Training`` is
+    its family's: ``PartitionedTraining``,
+    ``train_multi_scale.MSPartitionedTraining``)."""
 
     sim: torch.nn.Module
     sim_cfg: object
@@ -337,12 +358,29 @@ class Training:
     spec: Optional[PartitionSpec1D] = None
 
     def epochs(self) -> Iterator[dict]:
-        """The training batches, endlessly; for a graph-parallel run each
-        sample x-sorted into the plan's slabs (``partition_sample``)."""
-        source = self.batcher.epochs()
-        if self.spec is None:
-            return source
-        return (partition_sample(b, self.spec) for b in source)
+        """The training batches, endlessly."""
+        return self.batcher.epochs()
+
+    def validation_rollout(self, family: Family, cfg: TrainConfig, loader, device: torch.device) -> Callable:
+        """The rollout the validation takes over ``loader``'s trajectories."""
+        return family.rollout(self.sim_cfg, self.stats, cfg.inference_mode, device)
+
+
+@dataclass
+class PartitionedTraining(Training):
+    """``Training`` of a graph-parallel single-scale run."""
+
+    def epochs(self) -> Iterator[dict]:
+        """The training batches, endlessly, each sample x-sorted into the
+        plan's slabs (``partition_sample``)."""
+        return (partition_sample(b, self.spec) for b in self.batcher.epochs())
+
+    def validation_rollout(self, family: Family, cfg: TrainConfig, loader, device: torch.device) -> Callable:
+        """The host rollout on the training plan
+        (``make_partitioned_host_rollout``)."""
+        print(f"graph-parallel: {cfg.graph_parallel} shards x {self.spec.nodes_per_shard} nodes "
+              f"(halo {self.spec.halo})")
+        return make_partitioned_host_rollout(self.mesh, self.sim_cfg, self.stats, self.spec, cfg.inference_mode)
 
 
 def check_parallel(cfg: TrainConfig) -> None:
@@ -374,45 +412,76 @@ def partition_frames(trajectories) -> list:
     return [pos[t] for pos, _, _ in trajectories for t in (0, pos.shape[0] // 2, pos.shape[0] - 1)]
 
 
+def sample_batcher(cfg: TrainConfig, sim_cfg, batch_size: int) -> SampleBatcher:
+    """The training split's plain batcher."""
+    return SampleBatcher(Path(cfg.data_path) / "train.npz", cfg.input_sequence_length, batch_size,
+                         pad_multiple=cfg.pad_multiple, seed=cfg.seed)
+
+
+def mesh_sample_batcher(cfg: TrainConfig, sim_cfg: MeshSimulatorConfig, batch_size: int) -> MeshSampleBatcher:
+    """The training split's batcher with each sample's mesh."""
+    return MeshSampleBatcher(Path(cfg.data_path) / "train.npz", cfg.input_sequence_length, batch_size,
+                             mesh_radius=sim_cfg.mesh_radius, mesh_slots=sim_cfg.mesh_slots,
+                             pad_multiple=cfg.pad_multiple, seed=cfg.seed)
+
+
+def trajectory_loader(cfg: TrainConfig, sim_cfg, split: str) -> TrajectoryLoader:
+    """The trajectories of ``split``, padded."""
+    return TrajectoryLoader(Path(cfg.data_path) / f"{split}.npz", pad_multiple=cfg.pad_multiple)
+
+
+def _partitioned_training(cfg: TrainConfig, sim, sim_cfg, stats, optimizer, noise_gen, mesh,
+                          batch_size: int) -> PartitionedTraining:
+    """The single-scale graph-parallel wiring: one plan over the training
+    split, ``PartitionedTrainStep``."""
+    batcher = sample_batcher(cfg, sim_cfg, batch_size)
+    # plan with a noise margin: the step adds a random walk of cumulative
+    # std noise_std * sqrt(S - 1) at the last frame, 4 sigma of it on
+    # each of two nodes, so that the guard does not fire on clean frames
+    plan_radius = cfg.connection_radius + 4.0 * cfg.noise_std * float(
+        np.sqrt(max(cfg.input_sequence_length - 1, 1)))
+    spec = dataset_partition_plan(partition_frames(batcher.trajectories), cfg.graph_parallel, plan_radius)
+    step_fn = PartitionedTrainStep(mesh, sim_cfg, stats, spec, sim, optimizer, lr_schedule(cfg), cfg.noise_std,
+                                   noise_gen, loss_weight_position=cfg.loss_weight_position,
+                                   loss_weight_strain=cfg.loss_weight_strain)
+    return PartitionedTraining(sim, sim_cfg, stats, optimizer, step_fn, batcher, mesh, spec)
+
+
+def _partitioned_predict(cfg: TrainConfig, sim_cfg, stats, loader, device, devices) -> Callable:
+    """``predict``'s single-scale graph-parallel rollout: a plan over the
+    split's trajectories, re-planned when the guard fires."""
+    mesh = parallel_mesh(dataclasses.replace(cfg, data_parallel=1), device, devices)
+    spec = dataset_partition_plan(partition_frames(loader.trajectories), cfg.graph_parallel, cfg.connection_radius)
+    print(f"graph-parallel rollout: {cfg.graph_parallel} shards x {spec.nodes_per_shard} nodes (halo {spec.halo})")
+    return make_partitioned_host_rollout(mesh, sim_cfg, stats, spec, cfg.inference_mode)
+
+
 def build_training(
-    cfg: TrainConfig, device: torch.device, batch_size: Optional[int] = None, devices: Optional[Sequence] = None
+    cfg: TrainConfig, device: torch.device, batch_size: Optional[int] = None, devices: Optional[Sequence] = None,
+    family: Optional[Family] = None,
 ) -> Training:
-    """The model from ``cfg.seed``, its optimizer, the training step (noise
-    from a generator seeded from ``cfg.seed``; data- or graph-parallel over
-    the mesh of ``devices`` when the config asks) and the batcher of the
-    training split; ``batch_size`` overrides ``cfg.batch_size``."""
+    """``family``'s model (default: ``cfg.architecture``'s) from
+    ``cfg.seed``, its optimizer, the training step (noise from a generator
+    seeded from ``cfg.seed``; data- or graph-parallel over the mesh of
+    ``devices`` when the config asks) and the batcher of the training
+    split; ``batch_size`` overrides ``cfg.batch_size``."""
+    family = family or family_of(cfg)
     check_parallel(cfg)
-    data_dir = Path(cfg.data_path)
-    metadata = load_metadata(data_dir)
-    sim_cfg = model_config_from(cfg, metadata, data_dir)
+    metadata = load_metadata(cfg.data_path)
+    sim_cfg = family.config_from(cfg, metadata)
     stats = make_norm_stats(metadata, cfg.noise_std, device=device)
-    sim = model_init(sim_cfg, cfg, device)
+    sim = family.init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=device)
     optimizer = make_optimizer(sim, cfg)
     noise_gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    kw = dict(pad_multiple=cfg.pad_multiple, seed=cfg.seed)
-    if isinstance(sim_cfg, MeshSimulatorConfig):
-        batcher = MeshSampleBatcher(data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size,
-                                    mesh_radius=sim_cfg.mesh_radius, mesh_slots=sim_cfg.mesh_slots, **kw)
+    mesh, batch_size = parallel_mesh(cfg, device, devices), batch_size or cfg.batch_size
+    if cfg.graph_parallel > 1:
+        return family.partitioned(cfg, sim, sim_cfg, stats, optimizer, noise_gen, mesh, batch_size)
+    if mesh is not None:
+        step_fn = DataParallelStep(lambda m, d: family.loss(m, sim_cfg, stats.to(d), cfg), sim, mesh, optimizer,
+                                   lr_schedule(cfg), cfg.noise_std, noise_gen)
     else:
-        batcher = SampleBatcher(data_dir / "train.npz", cfg.input_sequence_length, batch_size or cfg.batch_size, **kw)
-    mesh, spec = parallel_mesh(cfg, device, devices), None
-    sched = lr_schedule(cfg)
-    if cfg.data_parallel > 1:
-        step_fn = DataParallelStep(lambda m, d: make_loss_fn(m, sim_cfg, stats.to(d), cfg), sim, mesh, optimizer, sched,
-                                   cfg.noise_std, noise_gen)
-    elif cfg.graph_parallel > 1:
-        # plan with a noise margin: the step adds a random walk of cumulative
-        # std noise_std * sqrt(S - 1) at the last frame, 4 sigma of it on
-        # each of two nodes, so that the guard does not fire on clean frames
-        plan_radius = cfg.connection_radius + 4.0 * cfg.noise_std * float(
-            np.sqrt(max(cfg.input_sequence_length - 1, 1)))
-        spec = dataset_partition_plan(partition_frames(batcher.trajectories), cfg.graph_parallel, plan_radius)
-        step_fn = PartitionedTrainStep(mesh, sim_cfg, stats, spec, sim, optimizer, sched, cfg.noise_std, noise_gen,
-                                       loss_weight_position=cfg.loss_weight_position,
-                                       loss_weight_strain=cfg.loss_weight_strain)
-    else:
-        step_fn = make_train_step(sim, sim_cfg, stats, cfg, optimizer, noise_gen)
-    return Training(sim, sim_cfg, stats, optimizer, step_fn, batcher, mesh, spec)
+        step_fn = make_train_step(sim, sim_cfg, stats, cfg, optimizer, noise_gen, family)
+    return Training(sim, sim_cfg, stats, optimizer, step_fn, family.batcher(cfg, sim_cfg, batch_size), mesh)
 
 
 def audit_first_sample(batcher: SampleBatcher, sim_cfg: SimulatorConfig, radius: float) -> dict:
@@ -429,20 +498,28 @@ def audit_first_sample(batcher: SampleBatcher, sim_cfg: SimulatorConfig, radius:
 def make_rollout(
     sim_cfg: SimulatorConfig, stats: NormStats, mode: str, device: torch.device
 ) -> Callable:
-    """The rollout ``predict`` and the validation run: its step captured in
-    a CUDA graph on the card (``physics/captured_step.py``), the
-    counterpart of JAX's ``make_jit_rollout``. A MeshGraphNets config
-    builds each trajectory's mesh from its first frame first."""
+    """The single-scale rollout ``predict`` and the validation run: its step
+    captured in a CUDA graph on the card (``physics/captured_step.py``),
+    the counterpart of JAX's ``make_jit_rollout``."""
 
-    def _rollout(sim, positions, types, strains, node_mask):
-        mesh = None
-        if isinstance(sim_cfg, MeshSimulatorConfig):
-            real = np.asarray(positions)[np.asarray(node_mask, bool)]
-            mesh = build_mesh(real[:, 0], sim_cfg.mesh_radius, sim_cfg.mesh_slots, len(node_mask))
-        return rollout_fn(
-            sim, sim_cfg, stats, positions, types, strains,
-            node_mask=node_mask, inference_mode=mode, device=device, mesh=mesh,
-        )
+    def _rollout(sim, positions, types, strains, node_mask, graph=None):
+        return rollout_fn(sim, sim_cfg, stats, positions, types, strains, node_mask=node_mask,
+                          inference_mode=mode, device=device)
+
+    return _rollout
+
+
+def make_mesh_rollout(
+    sim_cfg: MeshSimulatorConfig, stats: NormStats, mode: str, device: torch.device
+) -> Callable:
+    """``make_rollout`` of MeshGraphNets: each trajectory's mesh built from
+    its first frame (``build_mesh``), then ``mesh_rollout``."""
+
+    def _rollout(sim, positions, types, strains, node_mask, graph=None):
+        real = np.asarray(positions)[np.asarray(node_mask, bool)]
+        mesh = build_mesh(real[:, 0], sim_cfg.mesh_radius, sim_cfg.mesh_slots, len(node_mask))
+        return mesh_rollout(sim, sim_cfg, stats, positions, types, strains, mesh, node_mask=node_mask,
+                            inference_mode=mode, device=device)
 
     return _rollout
 
@@ -455,7 +532,7 @@ def make_partitioned_host_rollout(
     call signature, so ``evaluate_split`` takes it unchanged."""
     run = make_replanning_rollout(mesh, sim_cfg, stats, spec, inference_mode=mode)
 
-    def _rollout(sim, positions, types, strains, node_mask):
+    def _rollout(sim, positions, types, strains, node_mask, graph=None):
         out = run(sim, positions, types, strains, node_mask)
         if int(out["replans"]):
             print(f"  partition re-planned {int(out['replans'])}x during rollout")
@@ -470,43 +547,70 @@ def make_partitioned_host_rollout(
     return _rollout
 
 
-def evaluate_split(
-    sim: LearnedSimulator,
-    sim_cfg: SimulatorConfig,
-    stats: NormStats,
-    loader: TrajectoryLoader,
-    rollout: Callable,
-):
-    """Roll out every trajectory of the loader; (per-case outputs, summary)."""
+GNS = Family(
+    title="single-scale", config_from=simulator_config_from, init=simulator_init, loss=make_loss_fn,
+    batcher=sample_batcher, loader=trajectory_loader, rollout=make_rollout,
+    banner=lambda cfg, sim_cfg: f"slots={sim_cfg.slots} symmetric_gather={sim_cfg.symmetric_gather}",
+    audit=audit_first_sample, partitioned=_partitioned_training, partitioned_predict=_partitioned_predict,
+)
+MESHGRAPHNET = Family(
+    title="meshgraphnet", config_from=mesh_config_from, init=mesh_simulator_init, loss=make_mesh_loss_fn,
+    batcher=mesh_sample_batcher, loader=trajectory_loader, rollout=make_mesh_rollout,
+    banner=lambda cfg, sim_cfg: (f"mesh_slots={sim_cfg.mesh_slots} world_slots={sim_cfg.world_slots} "
+                                 f"(search {sim_cfg.world_search_slots})"),
+)
+ARCHITECTURES = {"gns": GNS, "meshgraphnet": MESHGRAPHNET}
+
+
+def family_of(cfg: TrainConfig) -> Family:
+    """The family ``cfg.architecture`` names."""
+    if cfg.architecture not in ARCHITECTURES:
+        raise ValueError(f"architecture must be one of {tuple(ARCHITECTURES)}, got {cfg.architecture!r}")
+    return ARCHITECTURES[cfg.architecture]
+
+
+def evaluate_split(sim: torch.nn.Module, loader, rollout: Callable, family: Family):
+    """Roll out every trajectory of the loader; (per-case outputs, summary).
+    The summary scores total, position and strain at the last step and
+    one_step at the first: by the cumulative RMSE, or for a ``per_step``
+    family by the per-step RMSE, with the rollouts' mean_time and std_time
+    (the JAX multi-scale evaluator)."""
+    suffix = "_per_step" if family.per_step else ""
     outputs, losses = [], {"total": [], "position": [], "strain": [], "one_step": []}
     for traj in loader:
         t0 = time.perf_counter()
-        out = rollout(
-            sim, traj["positions"], traj["particle_type"], traj["strains"], traj["node_mask"]
-        )
+        out = rollout(sim, traj["positions"], traj["particle_type"], traj["strains"], traj["node_mask"],
+                      traj.get("graph"))
         out = {k: v.cpu().numpy() for k, v in out.items()}  # waits for the device
         out["run_time"] = time.perf_counter() - t0
         outputs.append(out)
-        losses["position"].append(out["rmse_position"][-1])
-        losses["strain"].append(out["rmse_strain"][-1])
-        losses["total"].append(out["rmse_position"][-1] + out["rmse_strain"][-1])
-        losses["one_step"].append(out["rmse_position"][0] + out["rmse_strain"][0])
+        pos, strain = out["rmse_position" + suffix], out["rmse_strain" + suffix]
+        losses["position"].append(pos[-1])
+        losses["strain"].append(strain[-1])
+        losses["total"].append(pos[-1] + strain[-1])
+        losses["one_step"].append(pos[0] + strain[0])
     summary = {k: float(np.mean(v)) for k, v in losses.items() if v}
+    if family.per_step and outputs:
+        times = [o["run_time"] for o in outputs]
+        summary["mean_time"] = float(np.mean(times))
+        summary["std_time"] = float(np.std(times))
     return outputs, summary
 
 
-def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] = None) -> dict:
-    """Train on ``device`` (CUDA unless told otherwise; a parallel run over
-    the mesh of ``devices``, whose first is ``device``); returns
+def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] = None,
+          family: Optional[Family] = None) -> dict:
+    """Train ``family`` (default: ``cfg.architecture``'s) on ``device``
+    (CUDA unless told otherwise; a parallel run over the mesh of
+    ``devices``, whose first is ``device``); returns
     ``{"step", "lowest_eval_loss"}``."""
     dev = resolve_device(device)
-    check_parallel(cfg)
+    family = family or family_of(cfg)
     inner = max(1, int(cfg.inner_steps))
     for name in ("log_every", "nsave_steps", "ntraining_steps"):
         if getattr(cfg, name) % inner:
             raise ValueError(f"{name}={getattr(cfg, name)} must be a multiple of inner_steps={inner}")
-    built = build_training(cfg, dev, devices=devices)
-    sim, sim_cfg, stats, optimizer = built.sim, built.sim_cfg, built.stats, built.optimizer
+    built = build_training(cfg, dev, devices=devices, family=family)
+    sim, sim_cfg, optimizer, train_step = built.sim, built.sim_cfg, built.optimizer, built.step_fn
     ckpt_dir = Path(cfg.model_path) / cfg.run_name
     ckpt = CheckpointManager(ckpt_dir)
     lowest_eval_loss = float("inf")
@@ -520,32 +624,20 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
         lowest_eval_loss = meta.get("lowest_eval_loss") or float("inf")
         print(f"resumed from {cfg.model_file} at step {step}")
 
-    batcher, train_step = built.batcher, built.step_fn
-    valid_loader = TrajectoryLoader(Path(cfg.data_path) / "valid.npz", pad_multiple=cfg.pad_multiple)
-    if built.spec is not None:
-        rollout = make_partitioned_host_rollout(built.mesh, sim_cfg, stats, built.spec, cfg.inference_mode)
-        print(f"graph-parallel: {cfg.graph_parallel} shards x {built.spec.nodes_per_shard} nodes "
-              f"(halo {built.spec.halo})")
-    else:
-        rollout = make_rollout(sim_cfg, stats, cfg.inference_mode, dev)
+    valid_loader = family.loader(cfg, sim_cfg, "valid")
+    rollout = built.validation_rollout(family, cfg, valid_loader, dev)
     if cfg.data_parallel > 1:
         print(f"data-parallel over {cfg.data_parallel} replicas")
     monitor = ResourceMonitor(dev)
     sched = lr_schedule(cfg)
     rejection_tracker = RejectionTracker(limit=REJECTION_LIMIT)
-    if isinstance(sim_cfg, MeshSimulatorConfig):
-        graph = (f"mesh_slots={sim_cfg.mesh_slots} world_slots={sim_cfg.world_slots} "
-                 f"(search {sim_cfg.world_search_slots})")
-    else:
-        graph = f"slots={sim_cfg.slots} symmetric_gather={sim_cfg.symmetric_gather}"
     print(
-        f"training: {cfg.architecture} layers={cfg.layers} hidden={cfg.hidden_dim} batch={cfg.batch_size} "
-        f"nodes_padded={batcher.num_nodes} {graph} dtype={cfg.compute_dtype} "
+        f"{family.title} training: {family.banner(cfg, sim_cfg)} layers={cfg.layers} hidden={cfg.hidden_dim} "
+        f"batch={cfg.batch_size} nodes_padded={built.batcher.num_nodes} dtype={cfg.compute_dtype} "
         f"steps={cfg.ntraining_steps} device={dev}"
     )
-
-    if cfg.debug_graph:
-        audit_first_sample(built.batcher, sim_cfg, cfg.connection_radius)
+    if cfg.debug_graph and family.audit is not None:
+        family.audit(built.batcher, sim_cfg, cfg.connection_radius)
 
     logger = MetricLogger(ckpt_dir, use_wandb=cfg.log, project=cfg.project_name, run_name=cfg.run_name)
     source = DevicePrefetcher(built.epochs(), depth=PREFETCH_DEPTH, device=dev)
@@ -590,23 +682,22 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
             if step % cfg.nsave_steps == 0 and step > 0:
                 print(f"validating at step {step}...")
                 monitor.start()
-                _, summary = evaluate_split(sim, sim_cfg, stats, valid_loader, rollout)
+                _, summary = evaluate_split(sim, valid_loader, rollout, family)
                 val_stats = monitor.stop()
                 t_last = time.perf_counter()  # step times exclude validation
                 if not summary:
                     print("  WARNING: validation split is empty — skipping")
                     continue
-                logger.log(
-                    {
-                        "val/loss": summary["total"],
-                        "val/loss-position": summary["position"],
-                        "val/loss-strain": summary["strain"],
-                        "val/rmse-oneStep": summary["one_step"],
-                        "val/runtime": val_stats["elapsed_time"],
-                        "val/vram_mb": val_stats["max_memory_mb"],
-                    },
-                    step,
-                )
+                logged = {
+                    "val/loss": summary["total"],
+                    "val/loss-position": summary["position"],
+                    "val/loss-strain": summary["strain"],
+                    "val/rmse-oneStep": summary["one_step"],
+                    "val/runtime": val_stats["elapsed_time"],
+                    "val/vram_mb": val_stats["max_memory_mb"],
+                }
+                logged.update({f"val/{k}": summary[k] for k in ("mean_time", "std_time") if k in summary})
+                logger.log(logged, step)
                 print(
                     f"  val loss={summary['total']:.6f} (best {lowest_eval_loss:.6f}), "
                     f"{val_stats['elapsed_time']:.1f}s"
@@ -629,40 +720,37 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
     return {"step": step, "lowest_eval_loss": lowest_eval_loss}
 
 
-def predict(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] = None) -> dict:
-    """Rollout over valid (mode=valid) or test (mode=rollout) trajectories,
-    on ``device`` (CUDA unless told otherwise); ``graph_parallel: P``
-    partitions each trajectory over the mesh of ``devices`` (first:
-    ``device``). ``data_parallel`` plays no part in a rollout, as in JAX."""
+def predict(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] = None,
+            family: Optional[Family] = None) -> dict:
+    """Rollout of ``family`` (default: ``cfg.architecture``'s) over valid
+    (mode=valid) or test (mode=rollout) trajectories, on ``device`` (CUDA
+    unless told otherwise); ``graph_parallel: P`` partitions each
+    trajectory over the mesh of ``devices`` (first: ``device``) where the
+    family has a partitioned ``predict`` (the multi-scale one ignores it,
+    as JAX's). ``data_parallel`` plays no part in a rollout, as in JAX."""
     dev = resolve_device(device)
-    data_dir = Path(cfg.data_path)
-    metadata = load_metadata(data_dir)
-    sim_cfg = model_config_from(cfg, metadata, data_dir)
+    family = family or family_of(cfg)
+    metadata = load_metadata(cfg.data_path)
+    sim_cfg = family.config_from(cfg, metadata)
     stats = make_norm_stats(metadata, cfg.noise_std, device=dev)
 
     if cfg.model_file is None:
         print("error: valid/rollout modes require model_file", file=sys.stderr)
         sys.exit(1)
-    sim = model_init(sim_cfg, cfg, dev)
-    state, _ = CheckpointManager(Path(cfg.model_path) / cfg.run_name).restore(
-        cfg.model_file, map_location=dev
-    )
+    sim = family.init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+    state, _ = CheckpointManager(Path(cfg.model_path) / cfg.run_name).restore(cfg.model_file, map_location=dev)
     sim.load_state_dict(state["params"], strict=True)
     sim.eval()
 
     split = "test" if cfg.mode == "rollout" else "valid"
-    loader = TrajectoryLoader(data_dir / f"{split}.npz", pad_multiple=cfg.pad_multiple)
-    if cfg.graph_parallel > 1:
-        mesh = parallel_mesh(dataclasses.replace(cfg, data_parallel=1), dev, devices)
-        spec = dataset_partition_plan(partition_frames(loader.trajectories), cfg.graph_parallel, cfg.connection_radius)
-        rollout = make_partitioned_host_rollout(mesh, sim_cfg, stats, spec, cfg.inference_mode)
-        print(f"graph-parallel rollout: {cfg.graph_parallel} shards x {spec.nodes_per_shard} nodes "
-              f"(halo {spec.halo})")
+    loader = family.loader(cfg, sim_cfg, split)
+    if cfg.graph_parallel > 1 and family.partitioned_predict is not None:
+        rollout = family.partitioned_predict(cfg, sim_cfg, stats, loader, dev, devices)
     else:
-        rollout = make_rollout(sim_cfg, stats, cfg.inference_mode, dev)
+        rollout = family.rollout(sim_cfg, stats, cfg.inference_mode, dev)
     monitor = ResourceMonitor(dev)
     monitor.start()
-    outputs, summary = evaluate_split(sim, sim_cfg, stats, loader, rollout)
+    outputs, summary = evaluate_split(sim, loader, rollout, family)
     run_stats = monitor.stop()
 
     if cfg.mode == "rollout":
@@ -679,7 +767,7 @@ def predict(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence]
         print(f"saved {len(outputs)} rollout pickles to {save_dir}")
 
     print("=" * 70)
-    print(f"rollout summary ({dev})")
+    print(f"{family.title} rollout summary ({dev})")
     print(f"  mean loss: {summary.get('total', float('nan')):.6f}")
     print(f"  total runtime: {run_stats['elapsed_time']:.2f}s")
     if outputs:
@@ -689,25 +777,23 @@ def predict(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence]
     return summary
 
 
-def main(argv: Optional[list] = None, device: Device = None):
-    parser = argparse.ArgumentParser(description="Single-scale GNN training and rollout (PyTorch/CUDA)")
+def main(argv: Optional[list] = None, device: Device = None, family: Optional[Family] = None):
+    """The CLI of ``train`` and ``predict`` (``family``: default
+    ``cfg.architecture``'s)."""
+    parser = argparse.ArgumentParser(description="GNN training and rollout (PyTorch/CUDA)")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--mode", type=str, choices=["train", "valid", "rollout"])
     parser.add_argument("--model_file", type=str)
     parser.add_argument("--log", type=str, choices=["True", "False"])
     parser.add_argument("--device", type=str, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-
-    overrides = {
-        "mode": args.mode,
-        "model_file": args.model_file,
-        "log": None if args.log is None else args.log == "True",
-    }
-    cfg = load_config(args.config, overrides)
+    cfg = load_config(
+        args.config,
+        {"mode": args.mode, "model_file": args.model_file, "log": None if args.log is None else args.log == "True"},
+    )
     print(f"config loaded from {args.config}; mode={cfg.mode}")
-    if cfg.mode == "train":
-        return train(cfg, device=args.device or device)
-    return predict(cfg, device=args.device or device)
+    run = train if cfg.mode == "train" else predict
+    return run(cfg, device=args.device or device, family=family)
 
 
 if __name__ == "__main__":

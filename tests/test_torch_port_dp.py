@@ -157,14 +157,14 @@ def test_ms_dp_step_matches_jax_and_one_device(tiny, rng, ms_dense):  # noqa: F8
     before = {k: v.clone() for k, v in sim.state_dict().items()}
     mesh = tmesh.make_mesh(data=2, devices=["cpu", "cpu"])
     step = tdp.DataParallelStep(lambda m, d: ttms.make_loss_fn(m, tsim_cfg, tstats.to(d), cfg), sim, mesh,
-                                ttms.make_optimizer(sim, cfg), ttms.lr_schedule(cfg), cfg.noise_std)
+                                ttrain.make_optimizer(sim, cfg), ttrain.lr_schedule(cfg), cfg.noise_std)
     tbatch = msh.torch_batch(batch)
     tm = {k: float(v) for k, v in step(tbatch, 0, noise=noise).items()}
     tgrads = {k: p.grad.clone() for k, p in sim.named_parameters()}
     _assert_step(tm, tgrads, sim.state_dict(), before, want_m, want_g, want_p, msh.LOSS_TOL)
 
     one = msh.model_pair(cfg, seed=2)[3]
-    single = ttms.make_train_step(one, tsim_cfg, tstats, cfg, ttms.make_optimizer(one, cfg))
+    single = ttms.make_train_step(one, tsim_cfg, tstats, cfg, ttrain.make_optimizer(one, cfg))
     sm = {k: float(v) for k, v in single(tbatch, 0, noise=noise).items()}
     for name in sm:
         np.testing.assert_allclose(tm[name], sm[name], rtol=SINGLE_LOSS_RTOL, err_msg=name)

@@ -1,12 +1,12 @@
 """MeshGraphNets in the port (``physics/mesh_simulator``,
-``models/mesh_graph_net``, the single-scale trainer's ``architecture:
-meshgraphnet``) against the benchmark's plain reference
+``models/mesh_graph_net``, the trainer's family ``MESHGRAPHNET``, which
+``architecture: meshgraphnet`` picks) against the benchmark's plain reference
 (``h100_bench/reference/mesh_graph_net.py``), on the CPU at a tiny size: a
 12 x 6 bar, latent 16, 2 blocks, batch 2, one thread. Also the two edge
 sets against brute-force numpy sets, a fault that each tolerance catches,
-the world edge counter, and training and rollout through the trainer."""
+the world edge counter, and the options it refuses; training, predict
+and resume through the trainer are in ``test_torch_port_families.py``."""
 
-import json
 
 import numpy as np
 import pytest
@@ -20,10 +20,8 @@ from sgnn_tpu_torch.data.synthetic import generate_synthetic_raw_dataset
 from sgnn_tpu_torch.models import mesh_graph_net as tmgn
 from sgnn_tpu_torch.physics import mesh_simulator as tms
 from sgnn_tpu_torch.physics.noise import random_walk_position_noise
-from sgnn_tpu_torch.physics.rollout import rollout as port_rollout
 from sgnn_tpu_torch.physics.simulator import make_norm_stats
 from sgnn_tpu_torch.train import train as ttrain
-from sgnn_tpu_torch.train.checkpoint import CheckpointManager
 from sgnn_tpu_torch.train.config import TrainConfig
 
 NOISE = 0.02
@@ -71,8 +69,8 @@ class Model:
         root, data = env
         self.cfg = _config(root, data, seed=seed)
         self.md = load_metadata(data)
-        self.sim_cfg = ttrain.model_config_from(self.cfg, self.md, data)
-        self.sim = ttrain.model_init(self.sim_cfg, self.cfg, torch.device("cpu"))
+        self.sim_cfg = ttrain.MESHGRAPHNET.config_from(self.cfg, self.md)
+        self.sim = ttrain.MESHGRAPHNET.init(self.sim_cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
         self.stats = make_norm_stats(self.md, NOISE)
         self.ref_stats = ref.norm_stats(self.md, NOISE, "cpu")
         sc = self.sim_cfg
@@ -205,8 +203,8 @@ def test_rollout_matches_reference(env):
     mask = traj["node_mask"]
     first = pos[mask][:, 0]
     mesh = tms.build_mesh(first, model.sim_cfg.mesh_radius, model.sim_cfg.mesh_slots, len(mask))
-    out = port_rollout(model.sim, model.sim_cfg, model.stats, pos, traj["particle_type"],
-                       traj["strains"][:2 + steps], node_mask=mask, device="cpu", mesh=mesh)
+    out = tms.mesh_rollout(model.sim, model.sim_cfg, model.stats, pos, traj["particle_type"],
+                           traj["strains"][:2 + steps], mesh, node_mask=mask, device="cpu")
     params = model.params()
     window = torch.from_numpy(pos[mask][:, :2])
     mesh_ref = ref_mgn.mesh_graph(first, model.mc["mesh_radius"])
@@ -296,25 +294,12 @@ def test_derived_slots_cover_the_split(env):
     slots = tms.derive_slots(trajs, 0.6, 0.75)
     assert slots["mesh_slots"] == 4  # the quad mesh's axis neighbours
     assert slots["world_search_slots"] >= 9 + 2 and slots["world_slots"] >= slots["world_search_slots"] - 4 - 1 - 2
-    sim_cfg = ttrain.model_config_from(_config(*env), md, env[1])
+    sim_cfg = ttrain.MESHGRAPHNET.config_from(_config(*env), md)
     assert {k: getattr(sim_cfg, k) for k in slots} == slots
-
-
-def test_train_and_rollout_through_the_trainer(env):
-    root, data = env
-    cfg = _config(root, data)
-    result = ttrain.train(cfg, device="cpu")
-    assert result["step"] == 20 and np.isfinite(result["lowest_eval_loss"])
-    meta = json.load(open(root / "models" / "mgn" / "checkpoint_meta.json"))
-    state, _ = CheckpointManager(root / "models" / "mgn").restore(meta["path"])
-    assert any(k.endswith("world_edge_fn.0.NN-2.weight") for k in state["params"])
-    summary = ttrain.predict(_config(root, data, mode="rollout", model_file=meta["path"]), device="cpu")
-    assert np.isfinite(summary["total"])
-    assert list((root / "rollouts" / "mgn").glob("*.pkl"))
 
 
 def test_meshgraphnet_refuses_what_it_does_not_take(env):
     with pytest.raises(ValueError, match="remat"):
-        ttrain.check_architecture(_config(*env, remat="full"))
+        ttrain.MESHGRAPHNET.config_from(_config(*env, remat="full"), load_metadata(env[1]))
     with pytest.raises(ValueError, match="architecture"):
-        ttrain.check_architecture(_config(*env, architecture="transformer"))
+        ttrain.family_of(_config(*env, architecture="transformer"))

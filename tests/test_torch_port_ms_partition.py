@@ -489,9 +489,9 @@ def test_train_graph_parallel_validation_matches_one_device(tiny_env):
     host = ttms.make_ms_partitioned_host_rollout(built.mesh, built.sim_cfg, built.stats, built.spec,
                                                  cfg.inference_mode,
                                                  frames=[p[0] for p, _, _ in loader.trajectories])
-    _, gp = ttms.evaluate_split(built.sim, loader, host)
-    _, one = ttms.evaluate_split(built.sim, loader,
-                                 ttms._rollout_fn(built.sim_cfg, built.stats, cfg.inference_mode, "cpu"))
+    one_device = ttms._rollout_fn(built.sim_cfg, built.stats, cfg.inference_mode, "cpu")
+    _, gp = ttrain.evaluate_split(built.sim, loader, host, ttms.MULTI_SCALE)
+    _, one = ttrain.evaluate_split(built.sim, loader, one_device, ttms.MULTI_SCALE)
     for k in ("total", "position", "strain", "one_step"):
         np.testing.assert_allclose(gp[k], one[k], **ROLLOUT_TOL, err_msg=k)
 

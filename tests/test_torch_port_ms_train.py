@@ -1,7 +1,8 @@
 """The port's multi-scale training slice against the JAX package on CPU:
 the gathers' backwards, batch flattening, the training batcher, the
 batched training forward, one full training step (loss, aux, gradients,
-parameters after Adam) and the train/predict/resume flow.
+parameters after Adam) and the CLI in train mode (train, predict and
+resume are in ``test_torch_port_families.py``).
 
 JAX params are carried across by ``ms_state_dict_from_jax``; inputs and
 JAX's noise come from numpy seeds and JAX keys and are handed to both.
@@ -34,8 +35,8 @@ from sgnn_tpu_torch.ops import row_gather as rg
 from sgnn_tpu_torch.physics import multi_scale_graph as tg
 from sgnn_tpu_torch.physics import multi_scale_simulator as tms
 from sgnn_tpu_torch.physics.simulator import NormStats as TNormStats
+from sgnn_tpu_torch.train import train as ttrain
 from sgnn_tpu_torch.train import train_multi_scale as ttms
-from sgnn_tpu_torch.train.checkpoint import CheckpointManager
 from sgnn_tpu_torch.train.config import TrainConfig
 from sgnn_tpu_torch.utils.jax_params import ms_state_dict_from_jax
 
@@ -497,7 +498,7 @@ def jax_cfg(cfg):
 
 
 def batchers(cfg, seed=3):
-    sim_cfg = ttms.ms_config_from(cfg, ttms.load_metadata(cfg.data_path))
+    sim_cfg = ttms.ms_config_from(cfg, ttrain.load_metadata(cfg.data_path))
     kw = dict(ms_cfg=sim_cfg.graph_config, pad_multiple=cfg.pad_multiple, edge_pad_multiple=cfg.edge_pad_multiple,
               seed=seed, dense=cfg.ms_dense, m2m_traversals=cfg.layers,
               dense_row_advantage=4.0 if cfg.compute_dtype == "bfloat16" else 2.0)
@@ -530,7 +531,7 @@ def stats_pair(rng):
 
 
 def model_pair(cfg, seed=0):
-    md = ttms.load_metadata(cfg.data_path)
+    md = ttrain.load_metadata(cfg.data_path)
     jsim_cfg = jtms.ms_config_from(jax_cfg(cfg), md)
     tsim_cfg = ttms.ms_config_from(cfg, md)
     params = jax.tree.map(np.asarray, jms.multi_scale_simulator_init(jax.random.key(seed), jsim_cfg))
@@ -652,7 +653,7 @@ def test_train_step_matches_jax(tiny, rng, ms_dense, compute_dtype):
     before = {k: v.detach().clone() for k, v in sim.state_dict().items()}
     calls = {"sorted": 0, "planned": 0}
     wrap = {name: getattr(rg, name) for name in ("sorted_segment_sum", "planned_gather_bwd")}
-    step = ttms.make_train_step(sim, tsim_cfg, tstats, cfg, ttms.make_optimizer(sim, cfg))
+    step = ttms.make_train_step(sim, tsim_cfg, tstats, cfg, ttrain.make_optimizer(sim, cfg))
     with pytest.MonkeyPatch.context() as mp:
         for kind, name in (("sorted", "sorted_segment_sum"), ("planned", "planned_gather_bwd")):
             mp.setattr(rg, name, lambda *a, _k=kind, _f=wrap[name]: calls.__setitem__(_k, calls[_k] + 1) or _f(*a))
@@ -666,7 +667,7 @@ def test_train_step_matches_jax(tiny, rng, ms_dense, compute_dtype):
     assert set(tm) == set(jm) == {"train/loss", "train/loss-position", "train/loss-strain"}
     for name in jm:
         np.testing.assert_allclose(tm[name], jm[name], err_msg=name, **(LOSS_TOL if f32 else dict(rtol=BF16_TOL)))
-    lr0 = ttms.lr_schedule(cfg)(0)  # lr_init + 1e-6
+    lr0 = ttrain.lr_schedule(cfg)(0)  # lr_init + 1e-6
     tgrads = {k: p.grad for k, p in sim.named_parameters()}
     after = sim.state_dict()
     assert set(tgrads) == set(want_g) == set(want_p)
@@ -698,43 +699,10 @@ def test_train_step_matches_jax(tiny, rng, ms_dense, compute_dtype):
 def test_lr_schedule_matches_jax(tiny):
     cfg = tiny_config(tiny)
     for step in (0, 1, 500, 1000, 5000):
-        assert ttms.lr_schedule(cfg)(step) == pytest.approx(float(jtms.lr_schedule(jax_cfg(cfg))(step)), rel=1e-12)
+        assert ttrain.lr_schedule(cfg)(step) == pytest.approx(float(jtms.lr_schedule(jax_cfg(cfg))(step)), rel=1e-12)
 
 
 # --- train / predict / resume on the CPU -------------------------------------------
-
-
-def test_train_loss_decreases_and_checkpoints(tiny):
-    result = ttms.train(tiny_config(tiny), device="cpu")
-    assert result["step"] == 40 and np.isfinite(result["lowest_eval_loss"])
-    run = tiny / "models" / "ms"
-    meta = json.load(open(run / "checkpoint_meta.json"))
-    assert meta["lowest_eval_loss"] is not None and meta["path"].startswith("model-best-")
-    state, _ = CheckpointManager(run).restore(meta["path"])
-    assert set(state) == {"params", "opt_state", "step"} and state["step"] == meta["step"]
-    lines = [json.loads(line) for line in open(run / "metrics.jsonl")]
-    tl = [line["train/loss"] for line in lines if "train/loss" in line]
-    assert len(tl) == 4 and all(np.isfinite(tl))
-    assert tl[-1] < tl[0], f"loss did not decrease: {tl[0]} -> {tl[-1]}"
-    val = [line for line in lines if "val/loss" in line]
-    assert len(val) == 2
-    assert {"val/loss-position", "val/loss-strain", "val/rmse-oneStep", "val/runtime", "val/mean_time",
-            "val/std_time"} <= set(val[0])
-    assert {"train/loss-position", "train/loss-strain", "lr", "train/step_time_s"} <= set(lines[0])
-
-
-def test_predict_reads_the_trained_checkpoint(tiny):
-    meta = json.load(open(tiny / "models" / "ms" / "checkpoint_meta.json"))
-    summary = ttms.predict(tiny_config(tiny, mode="rollout", model_file=meta["path"]), device="cpu")
-    assert np.isfinite(summary["total"])
-    assert len(list((tiny / "rollouts" / "ms").glob("*.pkl"))) == 1
-
-
-def test_resume_from_checkpoint(tiny, capsys):
-    meta = json.load(open(tiny / "models" / "ms" / "checkpoint_meta.json"))
-    cfg = tiny_config(tiny, ntraining_steps=50, nsave_steps=10, model_file=meta["path"])
-    assert ttms.train(cfg, device="cpu")["step"] == 50
-    assert f"resumed from {meta['path']} at step {meta['step']}" in capsys.readouterr().out
 
 
 def test_main_trains_bf16_coo_and_runs_inner_steps(tiny, tmp_path):

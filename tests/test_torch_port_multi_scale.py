@@ -34,6 +34,7 @@ from sgnn_tpu_torch.physics import multi_scale_graph as tg
 from sgnn_tpu_torch.physics import multi_scale_simulator as tms
 from sgnn_tpu_torch.physics.simulator import NormStats as TNormStats
 from sgnn_tpu_torch.train import multi_scale_inference as tinfer
+from sgnn_tpu_torch.train import train as ttrain
 from sgnn_tpu_torch.train import train_multi_scale as ttms
 from sgnn_tpu_torch.train.checkpoint import CheckpointManager
 from sgnn_tpu_torch.train.config import TrainConfig
@@ -380,7 +381,7 @@ def write_yaml(path, cfg):
 
 
 def jax_params_for(cfg, root):
-    md = ttms.load_metadata(root / "data")
+    md = ttrain.load_metadata(root / "data")
     jcfg_train = jconfig.TrainConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(jconfig.TrainConfig)
                                         if hasattr(cfg, f.name)})
     jsim_cfg = jtms.ms_config_from(jcfg_train, md)
@@ -402,7 +403,7 @@ def test_predict_matches_jax_evaluate_split(tiny_data, tmp_path, capsys, ms_dens
         tiny_data / "data" / f"{split}.npz", ms_cfg=jsim_cfg.graph_config, pad_multiple=cfg.pad_multiple,
         edge_pad_multiple=cfg.edge_pad_multiple, dense=ms_dense,
         dense_row_advantage=4.0 if compute_dtype == "bfloat16" else 2.0, m2m_traversals=cfg.layers)
-    jstats = jms.NormStats(*(jnp.asarray(a) for a in ttms.make_norm_stats(md, cfg.noise_std)))
+    jstats = jms.NormStats(*(jnp.asarray(a) for a in ttrain.make_norm_stats(md, cfg.noise_std)))
     _, want = jtms.evaluate_split(params, jload, jtms.make_jit_rollout(jsim_cfg, jstats, cfg.inference_mode))
     capsys.readouterr()
 

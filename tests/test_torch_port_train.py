@@ -1,6 +1,7 @@
 """Port training slice against the JAX package on CPU: noise, batches, one
 full training step (loss, gradients, parameters after Adam), bf16
-gradients through the fused edge block, and the train/predict/resume flow.
+gradients through the fused edge block, and the trainer's checks (train,
+predict and resume are in ``test_torch_port_families.py``).
 
 JAX params are carried across by ``state_dict_from_jax``; JAX's noise is
 injected into the port's step, so both sides see the same inputs.
@@ -284,36 +285,6 @@ def tiny_config(root, data, **kw):
                 seed=0, log_every=20)
     base.update(kw)
     return TrainConfig(**base)
-
-
-def test_train_loss_decreases_and_checkpoints(tiny_env):
-    root, data = tiny_env
-    result = ttrain.train(tiny_config(root, data), device="cpu")
-    assert result["step"] == 120 and np.isfinite(result["lowest_eval_loss"])
-    meta = json.load(open(root / "models" / "t" / "checkpoint_meta.json"))
-    assert meta["lowest_eval_loss"] is not None and meta["path"].startswith("model-best-")
-    state, _ = CheckpointManager(root / "models" / "t").restore(meta["path"])
-    assert set(state) == {"params", "opt_state", "step"} and state["step"] == meta["step"]
-    lines = [json.loads(line) for line in open(root / "models" / "t" / "metrics.jsonl")]
-    tl = [line["train/loss"] for line in lines if "train/loss" in line]
-    assert len(tl) >= 4 and all(np.isfinite(tl))
-    assert tl[-1] < tl[0], f"loss did not decrease: {tl[0]} -> {tl[-1]}"
-    assert any("val/loss" in line for line in lines)
-
-
-def test_predict_reads_the_trained_checkpoint(tiny_env):
-    root, data = tiny_env
-    meta = json.load(open(root / "models" / "t" / "checkpoint_meta.json"))
-    summary = ttrain.predict(tiny_config(root, data, mode="rollout", model_file=meta["path"]), device="cpu")
-    assert np.isfinite(summary["total"])
-    assert len(list((root / "rollouts" / "t").glob("*.pkl"))) == 1
-
-
-def test_resume_from_checkpoint(tiny_env):
-    root, data = tiny_env
-    meta = json.load(open(root / "models" / "t" / "checkpoint_meta.json"))
-    cfg = tiny_config(root, data, ntraining_steps=130, nsave_steps=10, log_every=10, model_file=meta["path"])
-    assert ttrain.train(cfg, device="cpu")["step"] == 130
 
 
 def test_final_checkpoint_when_no_validation_ran(tiny_env):
