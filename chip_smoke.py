@@ -155,7 +155,21 @@ each of which raises on failure:
      and timed against their bytes bound at the training configurations'
      shapes (``phase_edge_epilogue``: one ``edge_epilogue <shape> {...}``
      line each). Phases 9-11 hold their launches on every multi-scale
-     route (dense f32: one a block; bf16 and COO: none).
+     route (dense f32: one a block; bf16 and COO: none). The f32 product
+     kernels' launches per step of the same three models are held too
+     (one forward and one weight gradient per product a step).
+ 14. The f32 product kernels (``csrc/f32_product.cu``) at the cells'
+     shapes: checked through ``ops/f32_product.linear`` under autograd
+     (strided rows, a [2, M/2, K] input, a transposed weight or its row
+     block) against f64 and two runs bit for bit, then timed in captured
+     CUDA graphs against their bound and ``torch.matmul``
+     (``phase_f32_product``: one ``f32_product <shape> {...}`` line
+     each). Phases 5, 6 and 9-12 zero the kernels' counters before their
+     runs and record the launches by kind; every f32 training run of 5
+     and 10 is held to P forwards and P weight gradients per training
+     step, whole numbers per validation step, and its captured route's
+     launches per step; every f32 rollout of 6 and 9 to a whole number of
+     forwards per step and no backward.
 
 The last lines are the training routes of 5 and 10 (one ``train routes
 {...}`` JSON line), the rollout routes of 6 and 9 (one ``routes {...}``
@@ -167,11 +181,13 @@ launches under ``launches_by_path``), the nvidia-smi line, and
     python3 chip_smoke.py --only parallel
     python3 chip_smoke.py --only capacity
     python3 chip_smoke.py --only edge_epilogue
+    python3 chip_smoke.py --only f32_product
 
 run phases 1, 2, 4 and the backward kernels' checks and times of 10 (one
 ``bwd {...}`` JSON line), phase 11 (its ``parallel {...}`` line), phase
-12 (its ``capacity {...}`` line) or phase 13 (its ``edge_epilogue
-{...}`` line), alone.
+12 (its ``capacity {...}`` line), phase 13 (its ``edge_epilogue
+{...}`` line) or phase 14 (its ``f32_product <shape> {...}`` lines),
+alone.
 """
 
 from __future__ import annotations
@@ -754,10 +770,12 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
     reset_fwd_variant_launches()
     reset_gather_launches()
     reset_bwd_gather_launches()
+    reset_f32_product_launches()
     t0 = time.perf_counter()
     result = train(cfg)  # the port's entry point, on CUDA by default: prefetched, captured
     got = dict(fwd=eb.LAUNCHES, bwd=eb.BWD_LAUNCHES, sym_bwd=sg.BWD_CALLS, take=rg.LAUNCHES[rg.MODEL_VARIANT],
                sorted=rg.BWD_LAUNCHES["sorted"])
+    products = f32_product_counts()
     variants = dict(eb.FWD_VARIANT_LAUNCHES)
     wall_s = time.perf_counter() - t0
     if got != expect:
@@ -784,7 +802,7 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
         config=name, compute_dtype=cfg.compute_dtype, batch_size=cfg.batch_size,
         receivers=cfg.batch_size * nodes, slots=sim_cfg.slots,
         symmetric_gather=sim_cfg.symmetric_gather, launches=got, expected_launches=expect,
-        fwd_launches_by_kernel=variants,
+        fwd_launches_by_kernel=variants, f32_product_launches=products,
         ms_per_step_11_20=train_rec[-1]["train/step_time_s"] * 1e3,
         ms_per_step_1_10=train_rec[0]["train/step_time_s"] * 1e3,
         train_loss=[r["train/loss"] for r in train_rec], val_loss=[r["val/loss"] for r in val_rec],
@@ -792,6 +810,10 @@ def run_training(root: Path, data: Path, name: str, smi: str, kind: str):
     )
     out["routes"] = training_routes(f"train {name}", cfg, torch.device("cuda", torch.cuda.current_device()),
                                     trainer, repeat_eager=not sim_cfg.symmetric_gather)
+    if cfg.compute_dtype == "float32":
+        out["f32_products"] = f32_products_of_training(
+            f"train {name}", products, TRAIN_STEPS, val_steps * (TRAIN_STEPS // SAVE_EVERY),
+            out["routes"]["captured"]["launches_per_step"])
     log(f"train {name} " + json.dumps(out))
     return out, cfg, meta["path"]
 
@@ -803,12 +825,14 @@ def _clone(tree):
 def _launch_counts():
     from sgnn_tpu_torch.ops import edge_block as eb
     from sgnn_tpu_torch.ops import edge_epilogue as ee
+    from sgnn_tpu_torch.ops import f32_product as fp
     from sgnn_tpu_torch.ops import row_gather as rg
     from sgnn_tpu_torch.ops import sym_gather as sg
 
     return dict(edge_block_fwd=eb.LAUNCHES, edge_block_bwd=eb.BWD_LAUNCHES, sym_gather_bwd=sg.BWD_CALLS,
                 take=rg.LAUNCHES[rg.MODEL_VARIANT], sorted=rg.BWD_LAUNCHES["sorted"],
-                planned=rg.BWD_LAUNCHES["planned"], epilogue_fwd=ee.LAUNCHES, epilogue_bwd=ee.BWD_LAUNCHES)
+                planned=rg.BWD_LAUNCHES["planned"], epilogue_fwd=ee.LAUNCHES, epilogue_bwd=ee.BWD_LAUNCHES,
+                **{f"f32_product_{k}": v for k, v in fp.LAUNCHES.items()})
 
 
 EPILOGUE_KEYS = ("epilogue_fwd", "epilogue_bwd")
@@ -823,6 +847,48 @@ def reset_epilogue_launches():
 def epilogue_counts() -> dict:
     counts = _launch_counts()
     return {k: counts[k] for k in EPILOGUE_KEYS}
+
+
+F32_PRODUCT_KEYS = ("f32_product_fwd", "f32_product_dgrad", "f32_product_wgrad")
+
+
+def reset_f32_product_launches():
+    from sgnn_tpu_torch.ops import f32_product as fp
+
+    for k in fp.LAUNCHES:
+        fp.LAUNCHES[k] = 0
+
+
+def f32_product_counts() -> dict:
+    counts = _launch_counts()
+    return {k: counts[k] for k in F32_PRODUCT_KEYS}
+
+
+def f32_products_of_training(where: str, got: dict, steps: int, rollout_steps: int, route: dict) -> dict:
+    """The f32 product kernels' launches of an f32 training run: per training
+    step P forwards and P weight gradients (one each per product) and D input
+    gradients (0 < D <= P: the encoders' first Linears read features), per
+    validation rollout step V forwards, all whole numbers; P, D and the
+    captured route's launches per step (``training_routes``) agree."""
+    fwd, dgrad, wgrad = (got[k] for k in F32_PRODUCT_KEYS)
+    per = dict(products_per_train_step=wgrad / steps, dgrad_per_train_step=dgrad / steps,
+               fwd_per_rollout_step=(fwd - wgrad) / rollout_steps if rollout_steps else fwd - wgrad)
+    whole = all(v == int(v) and v >= (1 if rollout_steps or k != "fwd_per_rollout_step" else 0)
+                for k, v in per.items())
+    p, d = per["products_per_train_step"], per["dgrad_per_train_step"]
+    by_route = [route[k] for k in F32_PRODUCT_KEYS]
+    if not whole or d > p or by_route != [p, d, p]:
+        raise AssertionError(f"{where}: f32_product launches {got} over {steps} training and {rollout_steps} "
+                             f"rollout steps ({per}); the captured route's per step {by_route}")
+    return per
+
+
+def f32_products_of_rollout(where: str, got: dict, steps: int) -> float:
+    """The f32 product kernels' forwards per rollout step (a whole number, no backward)."""
+    per = got["f32_product_fwd"] / steps
+    if per != int(per) or per < 1 or got["f32_product_dgrad"] or got["f32_product_wgrad"]:
+        raise AssertionError(f"{where}: f32_product launches {got} over {steps} rollout steps")
+    return per
 
 
 def training_routes(where, cfg, device, trainer, repeat_eager=False, devices=None):
@@ -1207,9 +1273,11 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
     torch.cuda.reset_peak_memory_stats()
     eb.LAUNCHES = eb.BWD_LAUNCHES = 0
     reset_fwd_variant_launches()
+    reset_f32_product_launches()
     take0 = rg.LAUNCHES["take"]
     summary = predict(cfg)  # the port's entry point, on CUDA by default: its step captured and replayed
     launches, bwd_launches = eb.LAUNCHES, eb.BWD_LAUNCHES
+    products = f32_product_counts()
     take = rg.LAUNCHES["take"] - take0
     if take != (steps if sim_cfg.symmetric_gather else 0):  # the packed gather, once per step
         raise AssertionError(f"rollout: the take kernel launched {take} times over {steps} steps")
@@ -1241,7 +1309,9 @@ def run_rollout(root: Path, data: Path, train_cfg, model_file: str, smi: str, ki
     ms_step = warm["run_time"] / n_steps * 1e3
     result = dict(
         compute_dtype=compute_dtype, launches=launches, expected_launches=expected,
-        fwd_launches_by_kernel=variants, take_launches=take,
+        fwd_launches_by_kernel=variants, take_launches=take, f32_product_launches=products,
+        f32_products_per_step=(f32_products_of_rollout("rollout", products, steps)
+                               if compute_dtype == "float32" else None),
         launches_per_step=launches / steps, steps=steps, nodes=loader.num_nodes,
         slots=sim_cfg.slots, ms_per_step=ms_step, steps_per_s=1e3 / ms_step,
         first_trajectory_s=outs[0]["run_time"], peak_memory_mb=peak_mb,
@@ -1615,10 +1685,12 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
     reset_gather_launches()
     reset_bwd_gather_launches()
     reset_epilogue_launches()
+    reset_f32_product_launches()
     # the port's entry point, on CUDA by default: its step captured and replayed
     summary = tms.main(["--config", str(yml), "--mode", "rollout", "--model_file", model_file])
     launches = dict(rg.LAUNCHES, sorted_sum=rg.BWD_LAUNCHES["sorted"])
     epilogue = epilogue_counts()
+    products = f32_product_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     if launches != expect:
         raise AssertionError(f"ms {name}: row_gather launches {launches}, expected {expect}")
@@ -1641,6 +1713,8 @@ def run_ms(root: Path, data: Path, name: str, model_file: str, smi: str, kind: s
     result = dict(
         run=name, layout="dense" if dense else "coo", compute_dtype=dtype_name, blocks=blocks,
         launches=launches, expected_launches=expect, epilogue_launches=epilogue, gathers_per_step=per_step,
+        f32_product_launches=products, f32_products_per_step=(f32_products_of_rollout(f"ms {name}", products, steps)
+                                                              if dtype_name == "float32" else None),
         steps=steps, nodes=loader.num_nodes, ms_per_step=ms_step, steps_per_s=1e3 / ms_step,
         first_trajectory_s=outs[0]["run_time"], peak_memory_mb=peak_mb,
         summary={k: summary[k] for k in ("total", "position", "strain", "one_step", "mean_time", "std_time")},
@@ -1781,12 +1855,14 @@ def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
     reset_gather_launches()
     reset_bwd_gather_launches()
     reset_epilogue_launches()
+    reset_f32_product_launches()
     t0 = time.perf_counter()
     result = tms.main(["--config", str(yml), "--mode", "train"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     got = dict(rg.LAUNCHES, **{f"bwd_{k}": v for k, v in rg.BWD_LAUNCHES.items()})
     epilogue = epilogue_counts()
+    products = f32_product_counts()
 
     # the counts the graphs ask: the training split's batcher and the validation loader
     sim_cfg = tms.ms_config_from(cfg, load_metadata(data))
@@ -1838,12 +1914,16 @@ def run_ms_train(root: Path, data: Path, name: str, smi: str, kind: str):
     out = dict(
         run=name, layout="dense" if dense else "coo", compute_dtype=cfg.compute_dtype, batch_size=cfg.batch_size,
         blocks=blocks, steps=steps, validation_rollout_steps=val_steps * n_val, launches=got,
-        expected_launches=expect, epilogue_launches=epilogue, ms_per_step_last_log=train_rec[-1]["train/step_time_s"] * 1e3,
+        expected_launches=expect, epilogue_launches=epilogue, f32_product_launches=products,
+        ms_per_step_last_log=train_rec[-1]["train/step_time_s"] * 1e3,
         logged_steps=log_steps, train_loss=[r["train/loss"] for r in train_rec],
         val_loss=[r["val/loss"] for r in val_rec], checkpoint=meta["path"], wall_s=wall_s, device=kind,
         nvidia_smi=smi,
     )
     out["routes"] = training_routes(f"ms train {name}", cfg, card, tms, repeat_eager=not dense)
+    if cfg.compute_dtype == "float32":
+        out["f32_products"] = f32_products_of_training(f"ms train {name}", products, steps, rollout_steps,
+                                                       out["routes"]["captured"]["launches_per_step"])
     log(f"ms train {name} " + json.dumps(out))
     return out
 
@@ -2898,6 +2978,10 @@ def add_parallel_launches(kernels, par) -> None:
                                      "gp_ms_dense_f32_per_step": gd["launches_per_step"][key],
                                      "gp_ms_coo_f32_per_step": gc["launches_per_step"][key],
                                      "gp_ms_dense_bf16_per_step": gb[key]}
+    for key in F32_PRODUCT_KEYS:
+        paths[(key, "float32")] = {"parallel_phase": par["f32_product_launches"][key],
+                                   "gp_ms_dense_f32_per_step": gd["launches_per_step"][key],
+                                   "gp_ms_coo_f32_per_step": gc["launches_per_step"][key]}
     for entry in kernels:
         for key in ((entry["name"], entry.get("dtype")), (entry["name"], None)):
             entry["launches_by_path"].update(paths.get(key, {}))
@@ -2908,6 +2992,7 @@ def phase_parallel(root: Path, data: Path, card, smi: str):
     just before it; one ``parallel {...}`` line."""
     import torch
 
+    reset_f32_product_launches()
     out = {}
     for name, fn in (("dp_A", lambda: dp_a_route(root, data, card, smi)),
                      ("dp_ms_dense_f32", lambda: dp_ms_route(root, data, card, smi)),
@@ -2924,8 +3009,9 @@ def phase_parallel(root: Path, data: Path, card, smi: str):
             if "routes" in out[n]}
     line = dict(design="one process drives a mesh of torch.devices; cuda:0 named twice: 2 replicas / 2 shards on the "
                        "one card, exchanges and reductions real, one CUDA graph per step",
-                busy_ms_per_step=busy, routes=out, nvidia_smi=smi)
+                busy_ms_per_step=busy, routes=out, f32_product_launches=f32_product_counts(), nvidia_smi=smi)
     log("parallel " + json.dumps(line))
+    out["f32_product_launches"] = line["f32_product_launches"]
     return out
 
 
@@ -3475,6 +3561,7 @@ def phase_capacity(root: Path, data: Path, card, smi: str) -> dict:
     import torch
 
     t0 = time.perf_counter()
+    reset_f32_product_launches()
     out = dict(native_search=native_search_check(data))
     out["remat_A"] = remat_modes_A(root, data, card)
     out["packed_B"] = packed_vs_unfused_B(root, data, card)
@@ -3487,7 +3574,7 @@ def phase_capacity(root: Path, data: Path, card, smi: str) -> dict:
     torch.cuda.empty_cache()
     out["capacity_point"] = capacity_point(root, data, card)
     torch.cuda.empty_cache()
-    out.update(seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    out.update(seconds=time.perf_counter() - t0, f32_product_launches=f32_product_counts(), nvidia_smi=smi)
     log("capacity " + json.dumps(out))
     return out
 
@@ -3496,7 +3583,8 @@ def add_capacity_launches(kernels, cap) -> None:
     """Phase 12's launches per step under each kernel's ``launches_by_path``:
     config A's remat modes (f32) and the capacity point's (bf16)."""
     keys = {"edge_block_fwd": "edge_block_fwd", "edge_block_bwd": "edge_block_bwd", "row_gather_take": "take",
-            "edge_epilogue_fwd": "epilogue_fwd", "edge_epilogue_bwd": "epilogue_bwd"}
+            "edge_epilogue_fwd": "epilogue_fwd", "edge_epilogue_bwd": "epilogue_bwd",
+            **{key: key for key in F32_PRODUCT_KEYS}}
     a = {f"capacity_A_remat_{m}_per_step": r["captured"]["launches_per_step"] for m, r in cap["remat_A"].items()}
     point = {f"capacity_point_remat_{m}_per_step": r["launches_per_step"]
              for m, r in cap["capacity_point"]["modes"].items()}
@@ -3507,6 +3595,8 @@ def add_capacity_launches(kernels, cap) -> None:
         for paths, dtype in ((a, "float32"), (point, "bfloat16")):
             if key == "take" or entry.get("dtype") == dtype:
                 entry["launches_by_path"].update({path: counts[key] for path, counts in paths.items()})
+        if key in F32_PRODUCT_KEYS:
+            entry["launches_by_path"]["capacity_phase"] = cap["f32_product_launches"][key]
 
 
 # the edge stage's epilogue (csrc/edge_epilogue.cu) at the training cells'
@@ -3663,7 +3753,8 @@ def epilogue_launches(root: Path, data: Path, dev) -> dict:
     EPILOGUE_STEPS steps): MeshGraphNets at its published widths (2 edge
     sets x 15 blocks), the dense f32 multi-scale model (one per dense edge
     set: g2m, each m2m set of each block, m2g) and config A (one hidden
-    layer: the fused edge block, none)."""
+    layer: the fused edge block, none). Also the f32 product kernels' per
+    step of each (returned second)."""
     import torch
 
     from sgnn_tpu_torch.data.prefetch import to_device
@@ -3673,7 +3764,7 @@ def epilogue_launches(root: Path, data: Path, dev) -> dict:
     runs = {"mgn_f32": (trainer, train_config(root, data, "A", run_name="smoke_epilogue_mgn", **MGN_MODEL)),
             "ms_dense_f32": (tms, ms_train_config(root, data, "dense_f32", run_name="smoke_epilogue_ms")),
             "A": (trainer, train_config(root, data, "A", run_name="smoke_epilogue_A"))}
-    out = {}
+    out, products = {}, {}
     for name, (mod, cfg) in runs.items():
         built = mod.build_training(cfg, dev)
         built.step_fn.capture = True
@@ -3684,11 +3775,16 @@ def epilogue_launches(root: Path, data: Path, dev) -> dict:
         source = built.epochs()
         batches = [to_device(next(source), dev) for _ in range(EPILOGUE_STEPS)]
         torch.cuda.synchronize()
-        before = epilogue_counts()
+        before, before_products = epilogue_counts(), f32_product_counts()
         for i, batch in enumerate(batches):
             built.step_fn(batch, i)
         torch.cuda.synchronize()
         got = {k: (v - before[k]) / EPILOGUE_STEPS for k, v in epilogue_counts().items()}
+        # the f32 product kernels: one forward and one weight gradient per product a step
+        products[name] = {k: (v - before_products[k]) / EPILOGUE_STEPS for k, v in f32_product_counts().items()}
+        fwd, dgrad, wgrad = (products[name][k] for k in F32_PRODUCT_KEYS)
+        if not (fwd == wgrad == int(fwd) >= 1 and int(dgrad) == dgrad and 1 <= dgrad <= fwd):
+            raise AssertionError(f"f32_product launches {name}: {products[name]} a step")
         replays = built.step_fn.replays
         built.step_fn.close()
         del built, batches, source
@@ -3697,14 +3793,16 @@ def epilogue_launches(root: Path, data: Path, dev) -> dict:
             raise AssertionError(f"edge_epilogue launches {name}: {got} a step ({replays} replays), expected {want}")
         out[name] = got
     log("edge_epilogue launches per step " + json.dumps(out))
-    return out
+    log("f32_product launches per step " + json.dumps(products))
+    return out, products
 
 
 def phase_epilogue(root: Path, data: Path, card) -> dict:
     """Phase 13 (one ``edge_epilogue {...}`` JSON line)."""
     import torch
 
-    out = dict(launches_per_step=epilogue_launches(root, data, card))
+    launches, products = epilogue_launches(root, data, card)
+    out = dict(launches_per_step=launches, f32_products_per_step=products)
     torch.cuda.empty_cache()
     out["timed"] = phase_edge_epilogue(card)
     log("edge_epilogue " + json.dumps(out))
@@ -3744,13 +3842,206 @@ def epilogue_summary(epi: dict, trained_a: dict, ms_runs: dict, ms_train: dict, 
     return out
 
 
+# the f32 product kernels' shapes (rows, K, N): the training cells' edge-row and node products at
+# MeshGraphNets' and the dense multi-scale model's widths, single-scale's width 64, the edge
+# encoders' 3- and 6-wide inputs and the decoder's 3-wide output
+F32_PRODUCT_SHAPES = {
+    "mgn_world_edges": (311296, 128, 128),
+    "mgn_mesh_edges": (155648, 128, 128),
+    "mgn_nodes": (38912, 128, 128),
+    "ms_m2m_edges": (466944, 128, 128),
+    "ms_m2g_edges": (622592, 128, 128),
+    "ms_grid_nodes": (77824, 128, 128),
+    "ss_nodes": (155648, 64, 64),
+    "edge_encoder_3": (311296, 3, 128),
+    "edge_encoder_6": (155648, 6, 128),
+    "decoder_3": (38912, 128, 3),
+}
+F32_PRODUCT_LAUNCHES = 20  # a captured graph of this many launches, two input sets in turns, per timing
+
+
+def graph_ms(fn, sets, launches=F32_PRODUCT_LAUNCHES):
+    """Device ms per call: ``launches`` calls cycling through ``sets`` captured in
+    one CUDA graph (no host time between launches), its replays timed with
+    CUDA events after a warm replay."""
+    import torch
+
+    for i in range(2):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * launches)
+
+
+TF32_PEAK_FLOPS = 495e12  # the tensor cores' TF32 rate: the yardstick's f32 peak (counts 2 M K N, not 3x)
+
+
+def f32_product_bounds(m, k, n):
+    """Least ms of each entry kind: the larger of its bytes over HBM rate (each
+    input read once, each output written once) and 2 M K N over the TF32 peak."""
+    ops = 2 * m * k * n
+    moved = {"fwd": m * k + m * n + k * n + n,  # x, y, w, b
+             "dgrad": 2 * m * n + k * n + m * k,  # g, the gate y, w, dx
+             "wgrad": m * k + 2 * m * n + k * n + n}  # x, g, the gate y, dw, db
+    out = {}
+    for kind, words in moved.items():
+        t_bytes, t_ops = 4 * words / HBM_BYTES_PER_S * 1e3, ops / TF32_PEAK_FLOPS * 1e3
+        out[kind] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _f32_product_operands(m, k, n, seed, dev):
+    """x [m, k] in the first k columns of an [m, k + 4] buffer (rows k + 4
+    words apart), a [n, 3k] torch weight whose transpose's middle [k, n] row
+    block is what the split first layers pass, b [n] and a cotangent [m, n]."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.zeros(m, k + 4)
+    x[:, :k] = torch.randn(m, k, generator=g)
+    full = torch.randn(n, 3 * k, generator=g) / k ** 0.5
+    return [t.to(dev) for t in (x, full, torch.randn(n, generator=g) * 0.1, torch.randn(m, n, generator=g))]
+
+
+def _through_linear(operands, k, row_block):
+    """``linear(x, w, b, ReLU)`` under autograd as the models call it: x a
+    [2, m / 2, k] view of strided rows (the wrapper's reshape), w a transposed
+    torch weight or its row block; returns y, dx, dw (in w's view), db and the
+    launches it made by kind."""
+    from sgnn_tpu_torch.ops import f32_product as fp
+
+    buf, full, b, cot = (t.detach().clone().requires_grad_(True) for t in operands)
+    m = buf.shape[0]
+    view = (lambda t: t.t()[k:2 * k]) if row_block else (lambda t: t[:, :k].t())
+    before = dict(fp.LAUNCHES)
+    y = fp.linear(buf[:, :k].view(2, m // 2, k), view(full), b, relu=True)
+    y.backward(cot.detach().view(2, m // 2, -1))
+    launches = {kind: fp.LAUNCHES[kind] - before[kind] for kind in before}
+    return (y.detach().reshape(m, -1), buf.grad[:, :k], view(full.grad), b.grad), launches
+
+
+def phase_f32_product(dev) -> dict:
+    """Phase 14, the f32 product kernels at the cells' shapes. Checked through
+    ``linear`` under autograd (``_through_linear``: one launch of each kind)
+    against f64 (the error over the sum of the terms' sizes; the gradients
+    gated by the kernel's own ReLU) and two runs bit for bit. Then timed inside
+    captured CUDA graphs (``graph_ms``: device time, as in the captured
+    training step), two input sets in turns (past the 50 MB L2): the forward
+    (bias and ReLU) through ``linear``, the gated input gradient and the
+    weight gradient with the bias gradient through the launchers the backward
+    calls, each against its bound and against ``torch.matmul`` of the same
+    operands in f32 with TF32 off (a yardstick: the port never calls it for an
+    f32 product on the card); kernel, library, library, kernel."""
+    import torch
+
+    from sgnn_tpu_torch.ops import f32_product as fp
+
+    out = {}
+    for name, (m, k, n) in F32_PRODUCT_SHAPES.items():
+        row_block = name.endswith("nodes")  # the node updates' split first layers
+        operands = _f32_product_operands(m, k, n, 7, dev)
+        runs = [_through_linear(operands, k, row_block) for _ in range(2)]
+        torch.cuda.synchronize()
+        if any(launches != dict.fromkeys(fp.LAUNCHES, 1) for _, launches in runs):
+            raise AssertionError(f"f32_product {name}: linear's forward and backward launched {runs[0][1]}")
+        if not all(torch.equal(p, q) for p, q in zip(runs[0][0], runs[1][0])):
+            raise AssertionError(f"f32_product {name}: two runs differ")
+        y = runs[0][0][0]
+        x64 = operands[0][:, :k].double()
+        w64 = (operands[1].t()[k:2 * k] if row_block else operands[1][:, :k].t()).double()
+        b64, gg = operands[2].double(), torch.where(y > 0, operands[3].double(), 0.0)
+        want = ((x64 @ w64 + b64).clamp_min(0.0), gg @ w64.t(), x64.t() @ gg, gg.sum(0))
+        terms = (x64.abs() @ w64.abs() + b64.abs(), gg.abs() @ w64.abs().t(), x64.abs().t() @ gg.abs(),
+                 gg.abs().sum(0))
+        err = {kind: float(((got.double() - ref).abs() / (t + 1e-30)).max())
+               for kind, got, ref, t in zip(("fwd", "dgrad", "wgrad", "db"), runs[0][0], want, terms)}
+        if err["fwd"] > 1e-5 or err["dgrad"] > 1e-5 or err["wgrad"] > 2e-5 or err["db"] > 2e-5:
+            raise AssertionError(f"f32_product {name}: error over the terms' sizes {err}")
+        del runs, want, terms, x64, w64, gg, operands, y
+        sets = []
+        for seed in (1, 2):
+            g = torch.Generator().manual_seed(seed)
+            x, w = torch.randn(m, k, generator=g), (torch.randn(n, k, generator=g) / k ** 0.5).t()
+            b, cot = torch.randn(n, generator=g) * 0.1, torch.randn(m, n, generator=g)
+            w_dev = torch.empty((n, k), device=dev).t()
+            sets.append([x.to(dev), w_dev.copy_(w), b.to(dev), cot.to(dev)])
+        for s in sets:
+            s.append(fp.linear(s[0], s[1], s[2], True))  # the gate of the backward kinds
+        kernel = {"fwd": lambda x, w, b, g, y: fp.linear(x, w, b, True),
+                  "dgrad": lambda x, w, b, g, y: fp._launch_dgrad(g, y, w),
+                  "wgrad": lambda x, w, b, g, y: fp._launch_wgrad(x, g, y, w, True)}
+        library = {"fwd": lambda x, w, b, g, y: torch.matmul(x, w),
+                   "dgrad": lambda x, w, b, g, y: torch.matmul(g, w.t()),
+                   "wgrad": lambda x, w, b, g, y: torch.matmul(x.t(), g)}
+        bounds = f32_product_bounds(m, k, n)
+        res = dict(shape=[m, k, n], weight="row block" if row_block else "transposed", err_over_terms=err)
+        for kind in kernel:
+            times = [graph_ms(fn, sets) for fn in (kernel[kind], library[kind], library[kind], kernel[kind])]
+            ms = (times[0] + times[3]) / 2
+            res[kind] = dict(ms=ms, runs=[times[0], times[3]], library_ms=(times[1] + times[2]) / 2,
+                             library_runs=times[1:3], bound_ms=bounds[kind][0], bound_by=bounds[kind][1],
+                             bound_share=bounds[kind][0] / ms)
+        out[name] = res
+        log(f"f32_product {name} " + json.dumps(res))
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def f32_product_summary(prod: dict, trained: dict, rollouts: dict, ms_runs: dict, ms_train: dict,
+                        epi: dict) -> list:
+    """The product kernels' entries of the kernel summary, one per kind:
+    checked and timed at MeshGraphNets' world-edge shape (every shape under
+    ``by_shape``); launches per MeshGraphNets step at its published widths,
+    and by path (the rest in phases 11 and 12)."""
+    head = prod["mgn_world_edges"]
+    out = []
+    for kind in ("fwd", "dgrad", "wgrad"):
+        key = f"f32_product_{kind}"
+        per_path = {f"train_{n}_per_step": c[key] for n, c in epi["f32_products_per_step"].items()}
+        for n, (res, _, _) in trained.items():
+            per_path[f"train_{n}"] = res["f32_product_launches"][key]
+            per_path[f"train_{n}_route_per_step"] = res["routes"]["captured"]["launches_per_step"][key]
+        per_path.update({f"rollout_{dt}": r["f32_product_launches"][key] for dt, r in rollouts.items()})
+        per_path.update({f"ms_rollout_{n}": r["f32_product_launches"][key] for n, r in ms_runs.items()})
+        per_path.update({f"ms_train_{n}": r["f32_product_launches"][key] for n, r in ms_train.items()})
+        res = head[kind]
+        out.append(dict(
+            name=key, route="cuda", source="sgnn_tpu_torch/csrc/f32_product.cu",
+            replaces="XLA's dot of every Linear (sgnn_tpu/nn/core.py, the split first layers of "
+                     "sgnn_tpu/models/epd_flat.py and multi_scale.py; no Pallas original)",
+            launches=epi["f32_products_per_step"]["mgn_f32"][key], launches_by_path=per_path, dtype="float32",
+            shape=head["shape"], err_over_terms=head["err_over_terms"],
+            tol={"fwd": 1e-5, "dgrad": 1e-5, "wgrad": 2e-5, "db": 2e-5}, ms=res["ms"], kernel_ms_runs=res["runs"],
+            library_ms=res["library_ms"], library_ms_runs=res["library_runs"], plain_ms=None,
+            bound_ms=res["bound_ms"], bound_by=res["bound_by"], bound_share=res["bound_share"],
+            by_shape={n: dict(shape=r["shape"], **{f: r[kind][f] for f in ("ms", "library_ms", "bound_ms",
+                                                                            "bound_share")})
+                      for n, r in prod.items()},
+        ))
+    return out
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
-    parser.add_argument("--only", choices=["row_gather_bwd", "parallel", "capacity", "edge_epilogue", "feed"],
+    parser.add_argument("--only", choices=["row_gather_bwd", "parallel", "capacity", "edge_epilogue", "feed",
+                                           "f32_product"],
                         help="run only this phase (after 1, 2 and 4)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
@@ -3800,6 +4091,9 @@ def main() -> int:
             return 0
         if only == "edge_epilogue":
             phase_epilogue(root, data, card)
+            return 0
+        if only == "f32_product":
+            log("f32_product " + json.dumps(phase_f32_product(card)))
             return 0
         train_rows = {CONFIGS[n]["compute_dtype"]: CONFIGS[n]["batch_size"] * nodes for n in CONFIGS}
 
@@ -3877,6 +4171,10 @@ def main() -> int:
         epilogue = phase_epilogue(root, data, card)
         log(f"phase 13: {time.perf_counter() - t_start:.1f} s in all")
 
+        # 14. the f32 product kernels through linear: checked, timed
+        products = phase_f32_product(card)
+        log(f"phase 14: {time.perf_counter() - t_start:.1f} s in all")
+
     by_dtype = {trained[n][0]["compute_dtype"]: trained[n][0] for n in CONFIGS}
     kernels = []
     for kname, src, replaces in (
@@ -3912,6 +4210,7 @@ def main() -> int:
                                    "rollout_bfloat16": rollouts["bfloat16"]["take_launches"]}))
     kernels.extend(bwd_gather_summary(bwd_gather, ms_train, trained["A"][0]))
     kernels.extend(epilogue_summary(epilogue, trained["A"][0], ms_runs, ms_train, ms_step_checks))
+    kernels.extend(f32_product_summary(products, trained, rollouts, ms_runs, ms_train, epilogue))
     add_parallel_launches(kernels, parallel)
     add_capacity_launches(kernels, capacity)
     log("library " + json.dumps({"index_select": kernel_results["index_select"],

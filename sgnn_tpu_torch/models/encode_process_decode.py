@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
+from sgnn_tpu_torch.ops.f32_product import linear
 from sgnn_tpu_torch.ops.neighbors import NeighborList
 
 
@@ -117,14 +118,15 @@ def split_first_layer(
 
 
 def mlp_tail(mlp: MLP, h: torch.Tensor) -> torch.Tensor:
-    """The MLP's remaining layers given the first layer's preactivation."""
+    """The MLP's remaining layers given the first layer's preactivation
+    (each Linear and its ReLU one ``linear`` call)."""
     linears = mlp.linears
     if len(linears) == 1:
         return h  # a single Linear: its preactivation is the output
     x = torch.relu(h)
     for lin in linears[1:-1]:
-        x = torch.relu(lin(x))
-    return linears[-1](x)
+        x = linear(x, lin.weight.t(), lin.bias, relu=True)
+    return linear(x, linears[-1].weight.t(), linears[-1].bias)
 
 
 def interaction_network_apply(
@@ -138,16 +140,16 @@ def interaction_network_apply(
     mask = nl.mask[..., None].to(x.dtype)
 
     (w_i, w_j, w_e), b_e = split_first_layer(block.edge_fn[0], (d, d, d))
-    proj_i = x @ w_i
-    proj_j = x @ w_j
-    h = proj_i[:, None, :] + proj_j[nl.senders] + edge_latent @ w_e + b_e
+    proj_i = linear(x, w_i)
+    proj_j = linear(x, w_j)
+    h = proj_i[:, None, :] + proj_j[nl.senders] + linear(edge_latent, w_e) + b_e
     msg = mlp_tail(block.edge_fn[0], h)
     ln = block.edge_fn[1]
     msg = layer_norm(msg, ln.weight, ln.bias) * mask
 
     agg = msg.sum(dim=1)
     (w_agg, w_x), b_n = split_first_layer(block.node_fn[0], (d, d))
-    hn = agg @ w_agg + x @ w_x + b_n
+    hn = linear(agg, w_agg) + linear(x, w_x) + b_n
     upd = mlp_tail(block.node_fn[0], hn)
     ln = block.node_fn[1]
     upd = layer_norm(upd, ln.weight, ln.bias)

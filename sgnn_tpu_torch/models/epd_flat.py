@@ -17,6 +17,9 @@ MLPs take JAX's XLA edge stage (``_edge_block_plain``: ``_edge_block_xla``,
 last product, and the epilogue after it (bias, LayerNorm, slot mask,
 residual, slot sum) in one kernel each way (``ops/edge_epilogue``) for f32
 latents on the card (D up to 128); the slot sum adds no ``index_add_``.
+Every f32 product (the projections, the edge stage's products, the node
+update, the encoders and the decoder) is ``ops/f32_product.linear``, with
+a hidden layer's bias and ReLU: the 3xTF32 kernels on the card.
 
 ``compute_dtype=torch.bfloat16`` keeps the edge latents and gathered
 sender projections in bf16; node latents, LayerNorm moments, the node
@@ -25,7 +28,7 @@ gradient is rounded through bf16 on its way to the optimizer (the contract
 of the JAX module's ``_dot_wf32``): the kernel emits its weight gradients
 in f32, the products outside it take f32 operands, and the plain edge
 stage's products are ``_DotWf32``, whose weight gradient is an f32 product
-of the bf16 operands.
+of the bf16 operands (``_dot``: in f32 ``linear``).
 
 With ``rev=(rev_pos, rev_ok)`` (``ops/sym_gather.reverse_edge_positions``
 of a symmetric graph) each layer's sender gather is ``sym_gather``, whose
@@ -87,6 +90,7 @@ from sgnn_tpu_torch.models.encode_process_decode import (
 from sgnn_tpu_torch.nn.core import layer_norm
 from sgnn_tpu_torch.ops.edge_block import fused_edge_block
 from sgnn_tpu_torch.ops.edge_epilogue import edge_stage_epilogue
+from sgnn_tpu_torch.ops.f32_product import linear
 from sgnn_tpu_torch.ops.row_gather import ordered_gather
 from sgnn_tpu_torch.ops.sym_gather import BANDED, forward_banded_index, packed_sym_gather, sym_gather_plan
 
@@ -219,7 +223,7 @@ def encode_process_decode_apply_flat_fused(
     x = mlp_ln_apply(epd._encoder.node_fn, node_features)
     d = x.shape[-1]
     (_, w_j0, _), _ = split_first_layer(epd._processor.gnn_stacks[0].edge_fn[0], (d, d, d))
-    g_aux, xj0, rev_pos, rev_ok = packed_sym_gather(flat_last, x @ w_j0, senders2d, mask2d, compute_dtype,
+    g_aux, xj0, rev_pos, rev_ok = packed_sym_gather(flat_last, linear(x, w_j0), senders2d, mask2d, compute_dtype,
                                                     band_nodes)
     ef = edge_features_from(g_aux.reshape(m, k, dim), flat_last, mask2d, radius)
     degrees = mask2d.sum(dim=-1, keepdim=True).float()
@@ -265,6 +269,12 @@ class _DotWf32(torch.autograd.Function):
         return d_x, d_w.to(w.dtype)
 
 
+def _dot(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
+    """``x @ w (+ b) (ReLU)`` of the plain edge stage: ``linear``, whose
+    routes off the f32 kernels take ``_DotWf32``'s product."""
+    return linear(x, w, b, relu, product=_DotWf32.apply)
+
+
 class _RecvBroadcastAdd(torch.autograd.Function):
     """``h[m*K + k] += proj[m]`` (proj cast to h's dtype) whose backward
     sums proj's cotangent over the K slots in f32 (JAX's
@@ -294,9 +304,9 @@ def _mlp_tail_in(mlp, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Ten
     dt = h.dtype
     x = torch.relu(h)
     for lin in linears[1:-1]:
-        x = torch.relu(_DotWf32.apply(x, lin.weight.t()) + lin.bias.to(dt))
+        x = _dot(x, lin.weight.t(), lin.bias.to(dt), relu=True)
     last = linears[-1]
-    return _DotWf32.apply(x, last.weight.t()), last.bias
+    return _dot(x, last.weight.t()), last.bias
 
 
 def _edge_block_plain(edge_fn, e, xj, proj_i, degrees, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -312,7 +322,7 @@ def _edge_block_plain(edge_fn, e, xj, proj_i, degrees, k: int) -> Tuple[torch.Te
     (_, _, w_e), b_e = split_first_layer(edge_mlp, (d, d, d))
     m = proj_i.shape[0]
     dt = e.dtype
-    h = _DotWf32.apply(e, w_e) + xj.to(dt)
+    h = _dot(e, w_e) + xj.to(dt)
     h = _RecvBroadcastAdd.apply(h, proj_i + b_e, k)
     o, b2 = _mlp_tail_in(edge_mlp, h)
     return edge_stage_epilogue(o, b2, edge_ln.weight, edge_ln.bias, _slot_mask(degrees, m, k).to(dt), e, k)
@@ -323,7 +333,7 @@ def _edge_stage(block, x, e, xj, degrees, k: int) -> Tuple[torch.Tensor, torch.T
     d = x.shape[-1]
     edge_mlp, edge_ln = block.edge_fn[0], block.edge_fn[1]
     (w_i, _, w_e), b_e = split_first_layer(edge_mlp, (d, d, d))
-    proj_i = x @ w_i  # [M_s, H]
+    proj_i = linear(x, w_i)  # [M_s, H]
     if len(edge_mlp.linears) != 2:
         return _edge_block_plain(block.edge_fn, e, xj, proj_i, degrees, k)
     w2 = edge_mlp.linears[1]
@@ -339,7 +349,7 @@ def _node_update(block, x, agg) -> torch.Tensor:
     d = x.shape[-1]
     node_mlp, node_ln = block.node_fn[0], block.node_fn[1]
     (w_agg, w_x), b_n = split_first_layer(node_mlp, (d, d))
-    hn = agg @ w_agg + x @ w_x + b_n
+    hn = linear(agg, w_agg) + linear(x, w_x) + b_n
     return x + layer_norm(mlp_tail(node_mlp, hn), node_ln.weight, node_ln.bias)
 
 
@@ -404,7 +414,7 @@ def _process_decode(
         projs = []
         for stack, x in zip(stacks, xs):
             (_, w_j, _), _ = split_first_layer(stack[layer].edge_fn[0], (d, d, d))
-            proj_j = x @ w_j  # [M_s, H]
+            proj_j = linear(x, w_j)  # [M_s, H]
             projs.append(proj_j if compute_dtype is None else proj_j.to(compute_dtype))
         return tuple(gather(projs))
 

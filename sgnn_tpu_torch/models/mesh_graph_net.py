@@ -27,7 +27,8 @@ each edge stage is ``epd_flat._edge_block_plain`` over the first Linear in
 split form (``[v_j, v_i, e]``: the sender projection gathered per slot, the
 receiver projection broadcast over the slots), its slot sum the aggregate;
 in f32 its epilogue (bias, LayerNorm, mask, residual, slot sum) is one
-kernel each way (``ops/edge_epilogue``).
+kernel each way (``ops/edge_epilogue``), and every product (projections,
+edge and node MLPs, encoders, decoder) ``ops/f32_product.linear``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from torch import nn
 from sgnn_tpu_torch.models.encode_process_decode import mlp_ln_apply, mlp_tail, split_first_layer
 from sgnn_tpu_torch.models.epd_flat import _edge_block_plain, _slot_mask
 from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
+from sgnn_tpu_torch.ops.f32_product import linear
 
 EDGE_SETS = ("mesh", "world")
 
@@ -126,12 +128,12 @@ def mesh_graph_net_apply(net: MeshGraphNet, node_features: torch.Tensor, mesh: E
         for name, s, e in zip(EDGE_SETS, sets, es):
             edge_fn = getattr(block, f"{name}_edge_fn")
             (w_j, w_i, _), _ = split_first_layer(edge_fn[0], (d, d, d))
-            new_e, agg = _edge_block_plain(edge_fn, e, s.gather(x @ w_j), x @ w_i, s.degrees, s.k)
+            new_e, agg = _edge_block_plain(edge_fn, e, s.gather(linear(x, w_j)), linear(x, w_i), s.degrees, s.k)
             new_es.append(new_e)
             aggs.append(agg)
         node_mlp, node_ln = block.node_fn[0], block.node_fn[1]
         (w_x, w_mesh, w_world), b_n = split_first_layer(node_mlp, (d, d, d))
-        hn = x @ w_x + aggs[0] @ w_mesh + aggs[1] @ w_world + b_n
+        hn = linear(x, w_x) + linear(aggs[0], w_mesh) + linear(aggs[1], w_world) + b_n
         x = x + layer_norm(mlp_tail(node_mlp, hn), node_ln.weight, node_ln.bias)
         es = new_es
     return net._decoder.node_fn(x)

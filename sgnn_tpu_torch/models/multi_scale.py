@@ -31,7 +31,9 @@ custom VJPs; none adds with atomics, so the bits repeat from run to run:
     receiver-sorted ids), backward a gather.
 
 ``compute_dtype`` (bf16) lowers the edge-sized tensors; aggregation,
-LayerNorm moments, node updates and the prediction head stay f32.
+LayerNorm moments, node updates and the prediction head stay f32. Every
+product is ``ops/f32_product.linear`` (a hidden layer's bias and ReLU with
+it): the 3xTF32 kernels for f32 inputs on the card, else the composite.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from sgnn_tpu_torch.models.encode_process_decode import (
 )
 from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
 from sgnn_tpu_torch.ops.edge_epilogue import edge_stage_epilogue
+from sgnn_tpu_torch.ops.f32_product import linear
 from sgnn_tpu_torch.ops.row_gather import ordered_gather, planned_gather, sorted_gather, sorted_sum
 from sgnn_tpu_torch.physics.multi_scale_graph import DenseEdges, DenseStaticGraph, PaddedEdges, StaticGraph
 
@@ -95,14 +98,13 @@ class MultiScaleGNN(nn.Module):
 def _mlp_tail_product(mlp: MLP, h: torch.Tensor):
     """``_mlp_tail_in`` short of the last Linear's bias: (its product, that
     bias); (h, None) for a one-Linear MLP."""
-    dt = h.dtype
     linears = mlp.linears
     if len(linears) == 1:
         return h, None
     x = torch.relu(h)
     for lin in linears[1:-1]:
-        x = torch.relu(x @ lin.weight.t().to(dt) + lin.bias.to(dt))
-    return x @ linears[-1].weight.t().to(dt), linears[-1].bias
+        x = linear(x, lin.weight.t(), lin.bias, relu=True)
+    return linear(x, linears[-1].weight.t()), linears[-1].bias
 
 
 def _mlp_tail_in(mlp: MLP, h: torch.Tensor) -> torch.Tensor:
@@ -129,7 +131,7 @@ def _node_update(block: InteractionNetwork, x: torch.Tensor, agg_hn: torch.Tenso
     d = x.shape[-1]
     (_, w_x), b_n = split_first_layer(block.node_fn[0], (d, d))
     ln = block.node_fn[1]
-    upd = layer_norm(mlp_tail(block.node_fn[0], agg_hn + x @ w_x + b_n), ln.weight, ln.bias)
+    upd = layer_norm(mlp_tail(block.node_fn[0], agg_hn + linear(x, w_x) + b_n), ln.weight, ln.bias)
     return x + upd
 
 
@@ -153,15 +155,15 @@ def _interact(block: InteractionNetwork, x: torch.Tensor, e: torch.Tensor, edges
     dt = e.dtype if compute_dtype is None else compute_dtype
     maskf = edges.mask[:, None].to(dt)
     w_i, w_j, w_e, b_e = _edge_mlp_in(block, d, dt)
-    proj_i = x @ w_i  # [N, H]
-    proj_j = xs @ w_j  # [N_ext, H]
+    proj_i = linear(x, w_i)  # [N, H]
+    proj_j = linear(xs, w_j)  # [N_ext, H]
     if compute_dtype is not None:
         proj_j = proj_j.to(dt)
     xj = ordered_gather(proj_j, edges.senders, edges.order, sorted_senders, xs.shape[0])
-    h = sorted_gather(proj_i, edges.receivers, n).to(dt) + xj + e @ w_e + b_e
+    h = sorted_gather(proj_i, edges.receivers, n).to(dt) + xj + linear(e, w_e) + b_e
     msg = _edge_msg(block, h, maskf)
     agg = sorted_sum(msg.float(), edges.receivers, n)  # f32 accumulation
-    return _node_update(block, x, agg @ _agg_weight(block, d)), (e + msg) * maskf
+    return _node_update(block, x, linear(agg, _agg_weight(block, d))), (e + msg) * maskf
 
 
 def _encode_edges(gnn: MultiScaleGNN, name: str, feats: torch.Tensor, mask: torch.Tensor, compute_dtype):
@@ -213,8 +215,8 @@ def _interact_dense_scales(
     xs = x if x_sender_table is None else x_sender_table
     dt = es[0].dtype if compute_dtype is None else compute_dtype
     w_i, w_j, w_e, b_e = _edge_mlp_in(block, d, dt)
-    proj_i_full = x @ w_i  # [N, H]
-    proj_j = xs @ w_j  # [N_ext, H]
+    proj_i_full = linear(x, w_i)  # [N, H]
+    proj_j = linear(xs, w_j)  # [N_ext, H]
     if compute_dtype is not None:
         proj_j = proj_j.to(dt)
     w_agg = _agg_weight(block, d).to(dt).float()
@@ -225,11 +227,11 @@ def _interact_dense_scales(
         maskf = de.mask[..., None].to(dt)
         proj_i = sorted_gather(proj_i_full, de.recv, n)  # [R, H]
         xj = planned_gather(proj_j, de.senders, de.tsp_rows, de.tsp_node, de.tsp_mask, xs.shape[0])  # [R, K, H]
-        h = proj_i.to(dt)[:, None, :] + xj + e @ w_e + b_e
+        h = proj_i.to(dt)[:, None, :] + xj + linear(e, w_e) + b_e
         o, b2 = _mlp_tail_product(block.edge_fn[0], h)
         new_e, agg = edge_stage_epilogue(o, b2, ln.weight, ln.bias, maskf, e, de.mask.shape[-1])  # agg f32 [R, D]
         new_es.append(new_e)
-        agg_hn = agg_hn + sorted_sum(agg @ w_agg, de.recv, n)
+        agg_hn = agg_hn + sorted_sum(linear(agg, w_agg), de.recv, n)
     return _node_update(block, x, agg_hn), new_es
 
 

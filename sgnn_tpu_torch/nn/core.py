@@ -12,6 +12,10 @@ PyTorch layout, so a simulator's ``state_dict()`` has the keys that
   * LayerNorm: ``weight`` (scale, init 1) and ``bias`` (init 0); moments
     in f32 with eps 1e-5, output in the input's dtype (``core.py:81-91``).
   * Embedding: ``weight [num, dim]``, init N(0, 1).
+
+A Linear, and an MLP's Linear with the ReLU after it, is one call of
+``ops/f32_product.linear``: the 3xTF32 tensor-core kernels for f32 inputs
+on the card, else the composite (``x @ w + b``, then the ReLU).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from sgnn_tpu_torch.ops.f32_product import linear
 
 LN_EPS = 1e-5
 
@@ -44,7 +50,7 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(b.to(device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.t() + self.bias
+        return linear(x, self.weight.t(), self.bias)
 
 
 class MLP(nn.Sequential):
@@ -69,6 +75,13 @@ class MLP(nn.Sequential):
     @property
     def linears(self) -> list[Linear]:
         return [m for m in self if isinstance(m, Linear)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The children in order, each Linear and the ReLU after it one call."""
+        linears = self.linears
+        for i, lin in enumerate(linears):
+            x = linear(x, lin.weight.t(), lin.bias, relu=i < len(linears) - 1)
+        return x
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

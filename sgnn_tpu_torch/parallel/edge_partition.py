@@ -62,6 +62,7 @@ from sgnn_tpu_torch.models.epd_flat import (
     edge_features_from,
     sender_gather,
 )
+from sgnn_tpu_torch.ops.f32_product import linear
 from sgnn_tpu_torch.ops.neighbors import NeighborList
 from sgnn_tpu_torch.ops.sym_gather import band_violations, packed_sym_gather, reverse_edge_positions
 from sgnn_tpu_torch.parallel.mesh import Mesh, Replicas
@@ -316,7 +317,7 @@ def _sharded_forward(
         for sim, x in zip(sims, xs):
             (_, w_j0, _), _ = split_first_layer(sim._encode_process_decode._processor.gnn_stacks[0].edge_fn[0],
                                                 (d, d, d))
-            proj0.append(x @ w_j0)
+            proj0.append(linear(x, w_j0))
         packed = [packed_sym_gather(p, t, g[0].senders, g[0].mask, dtype, cfg.band_nodes)
                   for p, t, g in zip(pos_ext, _halo_exchange(proj0, halo, devices), graphs)]
     es, degrees, gathers, xj0 = [], [], [], None if packed is None else []

@@ -61,7 +61,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from sgnn_tpu_torch.ops import edge_block, edge_epilogue, row_gather, sym_gather
+from sgnn_tpu_torch.ops import edge_block, edge_epilogue, f32_product, row_gather, sym_gather
 from sgnn_tpu_torch.utils.profiling import trace_region
 
 # the kernels' launch counters, each an int or a dict of ints: (module, attribute)
@@ -75,6 +75,7 @@ COUNTERS = [
     (sym_gather, "BANDED"),
     (edge_epilogue, "LAUNCHES"),
     (edge_epilogue, "BWD_LAUNCHES"),
+    (f32_product, "LAUNCHES"),
 ]
 MAX_CACHED = 4  # captured steps kept per module; the least recently used goes first
 CAPTURES = 0  # rollout steps captured (each after its eager warm-up step) in this process
