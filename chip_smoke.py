@@ -88,8 +88,10 @@ each of which raises on failure:
      as in 5 (COO: the eager step twice). Then one dense f32 and one dense
      bf16 step at full width on 2 samples against the same step on the
      CPU (STEP_TOL), and both backward kernels against their plain
-     versions at the model's shapes (dense and COO batches) and at ragged
-     sizes (a run of 5,003 ids, runs across the sorted sum's chunks), each
+     versions at the model's shapes (dense and COO batches), at
+     GraphCast_small's g2m receivers (1 degree grid, mesh level 5: a pole's
+     594-id runs on 2 KB rows) and at ragged sizes (a run of 5,003 ids,
+     runs across the sorted sum's chunks), each
      launched twice and bit-identical to its plain version, timed beside
      the index_add_ route and their bound.
 
@@ -157,14 +159,17 @@ each of which raises on failure:
      line each). Phases 9-11 hold their launches on every multi-scale
      route (dense f32: one a block; bf16 and COO: none). The f32 product
      kernels' launches per step of the same three models are held too
-     (one forward and one weight gradient per product a step).
+     (one forward and one weight gradient per product a step), and of a
+     small GraphCast built by the trainer (10 degree grid, mesh level 2,
+     latent 32, 2 layers; no epilogue launch), held to its count of
+     products exactly (``graphcast_products``).
  14. The f32 product kernels (``csrc/f32_product.cu``) at the cells'
      shapes: checked through ``ops/f32_product.linear`` under autograd
      (strided rows, a [2, M/2, K] input, a transposed weight or its row
      block) against f64 and two runs bit for bit, then timed in captured
      CUDA graphs against their bound and ``torch.matmul``
      (``phase_f32_product``: one ``f32_product <shape> {...}`` line
-     each). Phases 5, 6 and 9-12 zero the kernels' counters before their
+     each), GraphCast_small's K and N to 512 among them. Phases 5, 6 and 9-12 zero the kernels' counters before their
      runs and record the launches by kind; every f32 training run of 5
      and 10 is held to P forwards and P weight gradients per training
      step, whole numbers per validation step, and its captured route's
@@ -2007,6 +2012,29 @@ def _long_run_ids(chunk: int):
     return torch.cat([ids, torch.full((chunk,), 201), torch.full((5003,), 202), torch.full((40,), 267)]), 260
 
 
+# GraphCast_small's graphs (graphcast_small_1deg_f32 in the benchmark): a 1 degree grid, mesh level 5,
+# latent 512; its g2m receivers take up to 594 grid senders a mesh node near a pole
+GRAPHCAST_SMALL = dict(resolution_deg=1.0, refinement=5, edge_pad_multiple=1024, latent=512, max_g2m_run=594)
+
+
+def _graphcast_g2m_receivers():
+    """(receivers [E_pad], mesh nodes) of GraphCast_small's g2m edges as the
+    model takes them (receivers non-decreasing, padded rows included)."""
+    import torch
+
+    from sgnn_tpu_torch.models.graphcast import G2M_RADIUS_FRACTION
+    from sgnn_tpu_torch.physics import sphere_graph
+
+    g = sphere_graph.build_graph(GRAPHCAST_SMALL["resolution_deg"], GRAPHCAST_SMALL["refinement"],
+                                 G2M_RADIUS_FRACTION, GRAPHCAST_SMALL["edge_pad_multiple"])
+    recv, n = torch.as_tensor(g.g2m.receivers), g.mesh_nodes
+    runs = torch.bincount(recv[torch.as_tensor(g.g2m.mask)].long(), minlength=n)
+    if int(runs.max()) != GRAPHCAST_SMALL["max_g2m_run"]:
+        raise AssertionError(f"GraphCast_small's g2m: longest run {int(runs.max())} ids, expected "
+                             f"{GRAPHCAST_SMALL['max_g2m_run']}")
+    return recv, n
+
+
 def _bwd_gather_cases(data: Path, dev):
     """The backwards' inputs at the model's shapes, from one flattened
     training batch of 16 of each layout (dense: the m2m and m2g receivers
@@ -2058,6 +2086,9 @@ def _bwd_gather_cases(data: Path, dev):
                                    ("m2g", "float32", torch.float32), ("m2m", "bfloat16", torch.bfloat16)):
         recv = getattr(coo, edge_type).receivers
         cases[f"coo_{edge_type}_recv_{name}"] = ("sorted", (cot(recv.numel(), dtype), recv, n))
+    gc_ids, gc_n = _graphcast_g2m_receivers()
+    cases["graphcast_g2m_recv_float32"] = ("sorted", (cot(gc_ids.numel(), torch.float32, GRAPHCAST_SMALL["latent"]),
+                                                      gc_ids.to(dev), gc_n))
     rng = np.random.default_rng(17)
     long_ids, long_n = _long_run_ids(rg.SORTED_CHUNK_MANY)
     assert rg.sorted_chunk(len(long_ids), long_n) == rg.SORTED_CHUNK_MANY
@@ -2140,7 +2171,7 @@ def phase_row_gather_bwd(data: Path, dev):
     for case in ("m2m_recv_float32", "m2g_recv_float32", "m2m_recv_bfloat16", "m2g_recv_bfloat16",
                  "m2g_recv_unpadded_float32", "m2g_recv_unpadded_bfloat16", "coo_g2m_recv_float32",
                  "coo_m2m_recv_float32", "coo_m2g_recv_float32", "coo_m2m_recv_bfloat16",
-                 "m2m_plan_float32", "m2g_plan_float32", "m2m_plan_bfloat16", "m2g_plan_bfloat16"):
+                 "graphcast_g2m_recv_float32", "m2m_plan_float32", "m2g_plan_float32", "m2m_plan_bfloat16", "m2g_plan_bfloat16"):
         kind, args = cases[case]
         kern, plain = fns[kind]
         t_plain_a = time_ms(lambda: plain(*args), [()], iters=20, warmup=3)
@@ -3745,6 +3776,51 @@ def phase_edge_epilogue(dev) -> dict:
 MGN_MODEL = dict(architecture="meshgraphnet", layers=15, hidden_dim=128, input_sequence_length=2, mesh_radius=0.6,
                  world_radius=0.75, batch_size=8, lr_init=1e-4, lr_decay_steps=5000000)
 EPILOGUE_STEPS = 5
+# a small GraphCast through the trainer: 10 degree grid, mesh level 2, latent 32, 2 processor layers
+GRAPHCAST_DATA = dict(resolution_deg=10.0, frames=8, surface_variables=["2m_temperature", "mean_sea_level_pressure"],
+                      atmospheric_variables=["temperature", "geopotential"], levels=[300, 500, 850],
+                      forcing_variables=["toa_incident_solar_radiation", "year_progress_sin"],
+                      static_variables=["land_sea_mask"])
+GRAPHCAST_MODEL = dict(architecture="graphcast", layers=2, hidden_dim=32, input_sequence_length=2, mesh_refinement=2,
+                       edge_pad_multiple=64, batch_size=1, noise_std=0.0, lr_init=1e-3)
+
+
+def make_graphcast_dataset(root: Path) -> Path:
+    """GRAPHCAST_DATA's fields in the port's split format (``data/fields.py``:
+    one trajectory a split, ``metadata.json`` beside them): seeded normal
+    noise with unit statistics, enough to count a step's launches."""
+    import numpy as np
+
+    spec, rng = GRAPHCAST_DATA, np.random.default_rng(7)
+    res = spec["resolution_deg"]
+    n_lat, n_lon = int(round(180.0 / res)) + 1, int(round(360.0 / res))
+    sizes = {"state": len(spec["surface_variables"]) + len(spec["atmospheric_variables"]) * len(spec["levels"]),
+             "forcing": len(spec["forcing_variables"]), "static": len(spec["static_variables"])}
+    out = root / "graphcast_data"
+    out.mkdir(parents=True, exist_ok=True)
+    for split in ("train", "valid", "test"):
+        traj = {"state": rng.standard_normal((spec["frames"], n_lat * n_lon, sizes["state"]), dtype=np.float32),
+                "forcings": rng.standard_normal((spec["frames"], n_lat * n_lon, sizes["forcing"]), dtype=np.float32),
+                "static": rng.standard_normal((n_lat * n_lon, sizes["static"]), dtype=np.float32)}
+        np.savez(out / f"{split}.npz", trajectories={"case-000": traj})
+    metadata = dict({k: v for k, v in spec.items() if k != "frames"}, family="graphcast", lat=n_lat, lon=n_lon,
+                    step_hours=6, **{f"{kind}_{stat}": [float(stat == "std")] * n
+                                     for kind, n in (("state", sizes["state"]), ("diff", sizes["state"]),
+                                                     ("forcing", sizes["forcing"]), ("static", sizes["static"]))
+                                     for stat in ("mean", "std")})
+    (out / "metadata.json").write_text(json.dumps(metadata))
+    return out
+
+
+def graphcast_products(layers: int) -> dict:
+    """f32 products of one GraphCast training step by kind: the five
+    encoders, the grid update and the decoder two each (one hidden layer);
+    each of the layers + 2 interaction steps seven (the edge MLP's first
+    layer split three ways and its output; the node MLP's aggregate and node
+    blocks and its output); every weight takes a gradient, every input but
+    the five encoders' features."""
+    fwd = 7 * 2 + 7 * (layers + 2)
+    return dict(zip(F32_PRODUCT_KEYS, (fwd, fwd - 5, fwd)))
 
 
 def epilogue_launches(root: Path, data: Path, dev) -> dict:
@@ -3754,16 +3830,21 @@ def epilogue_launches(root: Path, data: Path, dev) -> dict:
     sets x 15 blocks), the dense f32 multi-scale model (one per dense edge
     set: g2m, each m2m set of each block, m2g) and config A (one hidden
     layer: the fused edge block, none). Also the f32 product kernels' per
-    step of each (returned second)."""
+    step of each and of a small GraphCast (no epilogue; its products counted
+    exactly: ``graphcast_products``), returned second."""
     import torch
 
     from sgnn_tpu_torch.data.prefetch import to_device
     from sgnn_tpu_torch.train import train as trainer
     from sgnn_tpu_torch.train import train_multi_scale as tms
+    from sgnn_tpu_torch.train.config import TrainConfig
 
     runs = {"mgn_f32": (trainer, train_config(root, data, "A", run_name="smoke_epilogue_mgn", **MGN_MODEL)),
             "ms_dense_f32": (tms, ms_train_config(root, data, "dense_f32", run_name="smoke_epilogue_ms")),
             "A": (trainer, train_config(root, data, "A", run_name="smoke_epilogue_A"))}
+    runs["graphcast_f32"] = (trainer, TrainConfig(mode="train", data_path=str(make_graphcast_dataset(root)),
+                                                  model_path=str(root / "models"),
+                                                  run_name="smoke_epilogue_graphcast", **GRAPHCAST_MODEL))
     out, products = {}, {}
     for name, (mod, cfg) in runs.items():
         built = mod.build_training(cfg, dev)
@@ -3772,6 +3853,7 @@ def epilogue_launches(root: Path, data: Path, dev) -> dict:
             want = ms_blocks(built.batcher.graphs[0])
         else:
             want = 2 * MGN_MODEL["layers"] if name == "mgn_f32" else 0
+        want_products = graphcast_products(GRAPHCAST_MODEL["layers"]) if name == "graphcast_f32" else None
         source = built.epochs()
         batches = [to_device(next(source), dev) for _ in range(EPILOGUE_STEPS)]
         torch.cuda.synchronize()
@@ -3785,6 +3867,8 @@ def epilogue_launches(root: Path, data: Path, dev) -> dict:
         fwd, dgrad, wgrad = (products[name][k] for k in F32_PRODUCT_KEYS)
         if not (fwd == wgrad == int(fwd) >= 1 and int(dgrad) == dgrad and 1 <= dgrad <= fwd):
             raise AssertionError(f"f32_product launches {name}: {products[name]} a step")
+        if want_products is not None and products[name] != want_products:
+            raise AssertionError(f"f32_product launches {name}: {products[name]} a step, expected {want_products}")
         replays = built.step_fn.replays
         built.step_fn.close()
         del built, batches, source
@@ -3856,6 +3940,13 @@ F32_PRODUCT_SHAPES = {
     "edge_encoder_3": (311296, 3, 128),
     "edge_encoder_6": (155648, 6, 128),
     "decoder_3": (38912, 128, 3),
+    # GraphCast_small (graphcast_small_f32_train), 512-deep products on the mma.sync rows kernel and
+    # 264-split weight gradients: the edge latents' row block of the first edge Linear at the padded
+    # m2g and g2m rows, the grid encoder's 186 inputs and the decoder's 83 outputs at the grid's nodes
+    "gc_m2g_edge_block": (195584, 512, 512),
+    "gc_g2m_edge_block": (102400, 512, 512),
+    "gc_grid_encoder": (65160, 186, 512),
+    "gc_decoder": (65160, 512, 83),
 }
 F32_PRODUCT_LAUNCHES = 20  # a captured graph of this many launches, two input sets in turns, per timing
 
@@ -3888,13 +3979,15 @@ def graph_ms(fn, sets, launches=F32_PRODUCT_LAUNCHES):
 TF32_PEAK_FLOPS = 495e12  # the tensor cores' TF32 rate: the yardstick's f32 peak (counts 2 M K N, not 3x)
 
 
-def f32_product_bounds(m, k, n):
+def f32_product_bounds(m, k, n, gated=True):
     """Least ms of each entry kind: the larger of its bytes over HBM rate (each
-    input read once, each output written once) and 2 M K N over the TF32 peak."""
+    input read once, each output written once) and 2 M K N over the TF32 peak.
+    ``gated``: the backward kinds read the ReLU's output as their gate."""
     ops = 2 * m * k * n
+    gate = m * n if gated else 0
     moved = {"fwd": m * k + m * n + k * n + n,  # x, y, w, b
-             "dgrad": 2 * m * n + k * n + m * k,  # g, the gate y, w, dx
-             "wgrad": m * k + 2 * m * n + k * n + n}  # x, g, the gate y, dw, db
+             "dgrad": m * n + gate + k * n + m * k,  # g, the gate y, w, dx
+             "wgrad": m * k + m * n + gate + k * n + n}  # x, g, the gate y, dw, db
     out = {}
     for kind, words in moved.items():
         t_bytes, t_ops = 4 * words / HBM_BYTES_PER_S * 1e3, ops / TF32_PEAK_FLOPS * 1e3
@@ -3915,8 +4008,8 @@ def _f32_product_operands(m, k, n, seed, dev):
     return [t.to(dev) for t in (x, full, torch.randn(n, generator=g) * 0.1, torch.randn(m, n, generator=g))]
 
 
-def _through_linear(operands, k, row_block):
-    """``linear(x, w, b, ReLU)`` under autograd as the models call it: x a
+def _through_linear(operands, k, row_block, relu=True):
+    """``linear(x, w, b, relu)`` under autograd as the models call it: x a
     [2, m / 2, k] view of strided rows (the wrapper's reshape), w a transposed
     torch weight or its row block; returns y, dx, dw (in w's view), db and the
     launches it made by kind."""
@@ -3926,7 +4019,7 @@ def _through_linear(operands, k, row_block):
     m = buf.shape[0]
     view = (lambda t: t.t()[k:2 * k]) if row_block else (lambda t: t[:, :k].t())
     before = dict(fp.LAUNCHES)
-    y = fp.linear(buf[:, :k].view(2, m // 2, k), view(full), b, relu=True)
+    y = fp.linear(buf[:, :k].view(2, m // 2, k), view(full), b, relu=relu)
     y.backward(cot.detach().view(2, m // 2, -1))
     launches = {kind: fp.LAUNCHES[kind] - before[kind] for kind in before}
     return (y.detach().reshape(m, -1), buf.grad[:, :k], view(full.grad), b.grad), launches
@@ -3943,16 +4036,18 @@ def phase_f32_product(dev) -> dict:
     weight gradient with the bias gradient through the launchers the backward
     calls, each against its bound and against ``torch.matmul`` of the same
     operands in f32 with TF32 off (a yardstick: the port never calls it for an
-    f32 product on the card); kernel, library, library, kernel."""
+    f32 product on the card); kernel, library, library, kernel. GraphCast's
+    shapes (``gc_``) take no ReLU, as its SiLU MLPs call the product."""
     import torch
 
     from sgnn_tpu_torch.ops import f32_product as fp
 
     out = {}
     for name, (m, k, n) in F32_PRODUCT_SHAPES.items():
-        row_block = name.endswith("nodes")  # the node updates' split first layers
+        row_block = name.endswith(("nodes", "_block"))  # the split first layers
+        relu = not name.startswith("gc_")
         operands = _f32_product_operands(m, k, n, 7, dev)
-        runs = [_through_linear(operands, k, row_block) for _ in range(2)]
+        runs = [_through_linear(operands, k, row_block, relu) for _ in range(2)]
         torch.cuda.synchronize()
         if any(launches != dict.fromkeys(fp.LAUNCHES, 1) for _, launches in runs):
             raise AssertionError(f"f32_product {name}: linear's forward and backward launched {runs[0][1]}")
@@ -3961,8 +4056,8 @@ def phase_f32_product(dev) -> dict:
         y = runs[0][0][0]
         x64 = operands[0][:, :k].double()
         w64 = (operands[1].t()[k:2 * k] if row_block else operands[1][:, :k].t()).double()
-        b64, gg = operands[2].double(), torch.where(y > 0, operands[3].double(), 0.0)
-        want = ((x64 @ w64 + b64).clamp_min(0.0), gg @ w64.t(), x64.t() @ gg, gg.sum(0))
+        b64, gg = operands[2].double(), torch.where(y > 0, operands[3].double(), 0.0) if relu else operands[3].double()
+        want = ((x64 @ w64 + b64).clamp_min(0.0 if relu else -math.inf), gg @ w64.t(), x64.t() @ gg, gg.sum(0))
         terms = (x64.abs() @ w64.abs() + b64.abs(), gg.abs() @ w64.abs().t(), x64.abs().t() @ gg.abs(),
                  gg.abs().sum(0))
         err = {kind: float(((got.double() - ref).abs() / (t + 1e-30)).max())
@@ -3978,15 +4073,15 @@ def phase_f32_product(dev) -> dict:
             w_dev = torch.empty((n, k), device=dev).t()
             sets.append([x.to(dev), w_dev.copy_(w), b.to(dev), cot.to(dev)])
         for s in sets:
-            s.append(fp.linear(s[0], s[1], s[2], True))  # the gate of the backward kinds
-        kernel = {"fwd": lambda x, w, b, g, y: fp.linear(x, w, b, True),
+            s.append(fp.linear(s[0], s[1], s[2], True) if relu else None)  # the gate of the backward kinds
+        kernel = {"fwd": lambda x, w, b, g, y: fp.linear(x, w, b, relu),
                   "dgrad": lambda x, w, b, g, y: fp._launch_dgrad(g, y, w),
                   "wgrad": lambda x, w, b, g, y: fp._launch_wgrad(x, g, y, w, True)}
         library = {"fwd": lambda x, w, b, g, y: torch.matmul(x, w),
                    "dgrad": lambda x, w, b, g, y: torch.matmul(g, w.t()),
                    "wgrad": lambda x, w, b, g, y: torch.matmul(x.t(), g)}
-        bounds = f32_product_bounds(m, k, n)
-        res = dict(shape=[m, k, n], weight="row block" if row_block else "transposed", err_over_terms=err)
+        bounds = f32_product_bounds(m, k, n, relu)
+        res = dict(shape=[m, k, n], weight="row block" if row_block else "transposed", relu=relu, err_over_terms=err)
         for kind in kernel:
             times = [graph_ms(fn, sets) for fn in (kernel[kind], library[kind], library[kind], kernel[kind])]
             ms = (times[0] + times[3]) / 2

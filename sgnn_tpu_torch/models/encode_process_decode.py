@@ -28,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
+from sgnn_tpu_torch.nn.core import MLP, activate, layer_norm, mlp_ln
 from sgnn_tpu_torch.ops.f32_product import linear
 from sgnn_tpu_torch.ops.neighbors import NeighborList
 
@@ -52,10 +52,10 @@ class EPDConfig:
 
 
 class InteractionNetwork(nn.Module):
-    def __init__(self, cfg: EPDConfig, *, generator=None, device=None):
+    def __init__(self, cfg: EPDConfig, *, generator=None, device=None, activation: str = "relu"):
         super().__init__()
         d = cfg.latent_dim
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, activation=activation)
         # init order edge then node, as interaction_network_init
         self.edge_fn = mlp_ln(3 * d, cfg.hidden_dims, d, **kw)
         self.node_fn = mlp_ln(2 * d, cfg.hidden_dims, d, **kw)
@@ -119,13 +119,13 @@ def split_first_layer(
 
 def mlp_tail(mlp: MLP, h: torch.Tensor) -> torch.Tensor:
     """The MLP's remaining layers given the first layer's preactivation
-    (each Linear and its ReLU one ``linear`` call)."""
+    (each Linear and its activation one ``MLP.hidden`` call)."""
     linears = mlp.linears
     if len(linears) == 1:
         return h  # a single Linear: its preactivation is the output
-    x = torch.relu(h)
+    x = activate(mlp, h)
     for lin in linears[1:-1]:
-        x = linear(x, lin.weight.t(), lin.bias, relu=True)
+        x = mlp.hidden(x, lin)
     return linear(x, linears[-1].weight.t(), linears[-1].bias)
 
 

@@ -50,7 +50,7 @@ from sgnn_tpu_torch.models.encode_process_decode import (
     mlp_tail,
     split_first_layer,
 )
-from sgnn_tpu_torch.nn.core import MLP, layer_norm, mlp_ln
+from sgnn_tpu_torch.nn.core import MLP, activate, layer_norm, mlp_ln
 from sgnn_tpu_torch.ops.edge_epilogue import edge_stage_epilogue
 from sgnn_tpu_torch.ops.f32_product import linear
 from sgnn_tpu_torch.ops.row_gather import ordered_gather, planned_gather, sorted_gather, sorted_sum
@@ -101,9 +101,9 @@ def _mlp_tail_product(mlp: MLP, h: torch.Tensor):
     linears = mlp.linears
     if len(linears) == 1:
         return h, None
-    x = torch.relu(h)
+    x = activate(mlp, h)
     for lin in linears[1:-1]:
-        x = linear(x, lin.weight.t(), lin.bias, relu=True)
+        x = mlp.hidden(x, lin)
     return linear(x, linears[-1].weight.t()), linears[-1].bias
 
 

@@ -8,14 +8,16 @@ PyTorch layout, so a simulator's ``state_dict()`` has the keys that
     1/sqrt(in)) for both, as ``core.py:34-41`` (from an explicit
     ``torch.Generator``).
   * MLP: the reference ``build_mlp`` Sequential, children ``NN-i``
-    (Linear) and ``Act-i`` (ReLU, Identity on the last layer).
+    (Linear) and ``Act-i`` (ReLU, or SiLU where ``activation="silu"``;
+    Identity on the last layer).
   * LayerNorm: ``weight`` (scale, init 1) and ``bias`` (init 0); moments
     in f32 with eps 1e-5, output in the input's dtype (``core.py:81-91``).
   * Embedding: ``weight [num, dim]``, init N(0, 1).
 
 A Linear, and an MLP's Linear with the ReLU after it, is one call of
 ``ops/f32_product.linear``: the 3xTF32 tensor-core kernels for f32 inputs
-on the card, else the composite (``x @ w + b``, then the ReLU).
+on the card, else the composite (``x @ w + b``, then the ReLU). A SiLU
+layer is that product with its bias, then ``F.silu`` (``activate``).
 """
 
 from __future__ import annotations
@@ -24,11 +26,13 @@ from collections import OrderedDict
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sgnn_tpu_torch.ops.f32_product import linear
 
 LN_EPS = 1e-5
+ACTIVATIONS = ("relu", "silu")
 
 
 class Linear(nn.Module):
@@ -54,7 +58,8 @@ class Linear(nn.Module):
 
 
 class MLP(nn.Sequential):
-    """Reference ``build_mlp``: Linear->ReLU stacks, identity on the last."""
+    """Reference ``build_mlp``: Linear->activation stacks, identity on the
+    last; the activation is ReLU, or SiLU (GraphCast's swish)."""
 
     def __init__(
         self,
@@ -64,24 +69,43 @@ class MLP(nn.Sequential):
         *,
         generator: Optional[torch.Generator] = None,
         device=None,
+        activation: str = "relu",
     ):
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation must be one of {ACTIVATIONS}, got {activation!r}")
         sizes = [in_dim, *hidden_dims, out_dim]
         mods = OrderedDict()
         for i in range(len(sizes) - 1):
             mods[f"NN-{i}"] = Linear(sizes[i], sizes[i + 1], generator=generator, device=device)
-            mods[f"Act-{i}"] = nn.ReLU() if i < len(sizes) - 2 else nn.Identity()
+            act = nn.ReLU() if activation == "relu" else nn.SiLU()
+            mods[f"Act-{i}"] = act if i < len(sizes) - 2 else nn.Identity()
         super().__init__(mods)
+        self.activation = activation
 
     @property
     def linears(self) -> list[Linear]:
         return [m for m in self if isinstance(m, Linear)]
 
+    def hidden(self, x: torch.Tensor, lin: Linear) -> torch.Tensor:
+        """A hidden layer: ``lin`` and the activation after it (the ReLU
+        inside the product's call)."""
+        if self.activation == "relu":
+            return linear(x, lin.weight.t(), lin.bias, relu=True)
+        return F.silu(linear(x, lin.weight.t(), lin.bias))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The children in order, each Linear and the ReLU after it one call."""
+        """The children in order, each hidden Linear with its activation."""
         linears = self.linears
-        for i, lin in enumerate(linears):
-            x = linear(x, lin.weight.t(), lin.bias, relu=i < len(linears) - 1)
-        return x
+        for lin in linears[:-1]:
+            x = self.hidden(x, lin)
+        last = linears[-1]
+        return linear(x, last.weight.t(), last.bias)
+
+
+def activate(mlp: MLP, h: torch.Tensor) -> torch.Tensor:
+    """The MLP's activation of a preactivation ``h`` taken apart from its
+    product (the split first layer's)."""
+    return torch.relu(h) if mlp.activation == "relu" else F.silu(h)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -110,11 +134,12 @@ def mlp_ln(
     *,
     generator: Optional[torch.Generator] = None,
     device=None,
+    activation: str = "relu",
 ) -> nn.Sequential:
     """Sequential(MLP, LayerNorm): the encoder / interaction-network block
     (children ``0`` and ``1``, as the reference)."""
     return nn.Sequential(
-        MLP(in_dim, hidden_dims, out_dim, generator=generator, device=device),
+        MLP(in_dim, hidden_dims, out_dim, generator=generator, device=device, activation=activation),
         LayerNorm(out_dim, device=device),
     )
 

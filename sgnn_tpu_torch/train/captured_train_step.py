@@ -79,14 +79,14 @@ class TrainStep:
     """One training step over static buffers, captured in a CUDA graph on
     the card (see the module docstring). ``loss_fn(batch, noise) -> (loss,
     aux)``; ``sched(step) -> lr``; noise of std ``noise_std`` from
-    ``generator``."""
+    ``generator`` (``noise_std`` None: no noise, ``loss_fn`` gets None)."""
 
     def __init__(
         self,
         loss_fn: Callable,
         optimizer: torch.optim.Optimizer,
         sched: Callable[[int], float],
-        noise_std: float,
+        noise_std: Optional[float],
         generator: Optional[torch.Generator] = None,
         *,
         capture: bool = True,
@@ -117,16 +117,19 @@ class TrainStep:
             set_lr(self.optimizer, self.sched(step))
             if noise is not None:
                 return self.update(batch, noise)
-            shape, device = self.noise_shape(batch), batch["positions"].device
+            device = next(v for v in batch.values() if isinstance(v, torch.Tensor)).device
             if not self.capture:
-                z = draw_into(torch.empty(draw_shape(shape), device=device), self.generator)
-                return self.update(batch, random_walk_position_noise(shape, self.noise_std, z=z))
+                z = self._draws(batch, device)
+                if z is not None:
+                    draw_into(z, self.generator)
+                return self.update(batch, self._noise(batch, z))
             if self._key_of(batch) != self._key:
                 self.close()
                 self.batch = _tree_map(_buffer, batch)
-                self.z = torch.empty(draw_shape(shape), device=device)
+                self.z = self._draws(batch, device)
             _tree_map(lambda buf, t: buf.copy_(t), self.batch, batch)
-            draw_into(self.z, self.generator)
+            if self.z is not None:
+                draw_into(self.z, self.generator)
             if device.type != "cuda" or not self.capturable:
                 metrics = self._body()
                 self._key = self._key_of(self.batch)  # Adam's state exists now
@@ -142,9 +145,19 @@ class TrainStep:
         """The shape of the noise one step draws: the batch's positions'."""
         return tuple(batch["positions"].shape)
 
+    def _draws(self, batch, device: torch.device) -> Optional[torch.Tensor]:
+        """An empty buffer of a step's standard-normal draws (None without noise)."""
+        if self.noise_std is None:
+            return None
+        return torch.empty(draw_shape(self.noise_shape(batch)), device=device)
+
+    def _noise(self, batch, z: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if z is None:
+            return None
+        return random_walk_position_noise(self.noise_shape(batch), self.noise_std, z=z)
+
     def _body(self) -> Metrics:
-        shape = self.noise_shape(self.batch)
-        return self.update(self.batch, random_walk_position_noise(shape, self.noise_std, z=self.z))
+        return self.update(self.batch, self._noise(self.batch, self.z))
 
     def _key_of(self, batch) -> tuple:
         opt = self.optimizer

@@ -80,8 +80,9 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 10
 
-    # the single-scale trainer's model: "gns" (the reference's) or
-    # "meshgraphnet" (physics/mesh_simulator.py)
+    # the single-scale trainer's model: "gns" (the reference's),
+    # "meshgraphnet" (physics/mesh_simulator.py) or "graphcast"
+    # (models/graphcast.py, on gridded fields: data/fields.py)
     architecture: str = "gns"
     # meshgraphnet: the static mesh (first-frame pairs closer than
     # mesh_radius) and the per-step world edges (pairs closer than
@@ -92,6 +93,9 @@ class TrainConfig:
     mesh_slots: Optional[int] = None
     world_search_slots: Optional[int] = None
     world_slots: Optional[int] = None
+    # graphcast: the icosahedral mesh's refinement level (the multi-mesh
+    # joins levels 0 to it)
+    mesh_refinement: int = 5
 
     @property
     def domain(self) -> Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]]:

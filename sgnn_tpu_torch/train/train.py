@@ -10,12 +10,15 @@ Adam update), ``build_training`` (the model, optimizer, step and batcher
       --mode train|valid|rollout [--model_file NAME] [--device cuda|cpu]
 
 What differs between the model families is one ``Family`` each: ``GNS``
-(the single-scale model) and ``MESHGRAPHNET`` (``physics/mesh_simulator.py``),
-which ``cfg.architecture`` picks (``gns``, ``meshgraphnet``), and
+(the single-scale model), ``MESHGRAPHNET`` (``physics/mesh_simulator.py``)
+and ``GRAPHCAST`` (``models/graphcast.py`` on gridded fields), which
+``cfg.architecture`` picks (``gns``, ``meshgraphnet``, ``graphcast``), and
 ``train_multi_scale.MULTI_SCALE``, which that module's entry point passes.
-A family gives the simulator's config and init, the loss, the training
-batcher and the split loader, the rollout of one loader item and how it is
-scored, its words in the training banner, and its graph-parallel wiring.
+A family gives the simulator's config and init, the loss and its terms,
+the statistics it normalises with, the optimiser and its schedule, whether
+a step draws input noise, the training batcher and the split loader, the
+rollout of one loader item and how it is scored, its words in the training
+banner, and its graph-parallel wiring.
 A new model configuration is its simulator module, its family entry and
 its tests; the loop stays as it is.
 
@@ -62,6 +65,14 @@ trainer warns at a log point where it is above 0. ``debug_graph: true``
 audits the first training sample's graph before training
 (``utils/graph_debug.audit_neighbor_list``).
 
+GraphCast's graphs are static: built on the host with the model
+(``physics/sphere_graph.build_graph``) and kept on it; a batch holds each
+sample's input states, forcings, static fields and target
+(``data/fields.FieldBatcher``), and a loader item a whole trajectory, which
+the rollout forecasts step after step. Its optimiser is AdamW with the
+published warm-up and cosine schedule (``graphcast_optimizer``,
+``graphcast_schedule``), and its step draws no noise.
+
 MeshGraphNets' batches carry each sample's static mesh
 (``MeshSampleBatcher``), and each rolled-out trajectory's mesh is built
 from its first frame (``make_mesh_rollout``). Its slot widths
@@ -74,12 +85,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import pickle
 import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Iterator, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,7 +103,9 @@ from sgnn_tpu_torch.data.loader import (
     load_metadata,
     load_trajectories,
 )
+from sgnn_tpu_torch.data.fields import FieldBatcher, load_field_split
 from sgnn_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+from sgnn_tpu_torch.models import graphcast as gc
 from sgnn_tpu_torch.models.epd_flat import check_remat
 from sgnn_tpu_torch.parallel.data_parallel import DataParallelStep
 from sgnn_tpu_torch.parallel.edge_partition import (
@@ -128,38 +142,19 @@ from sgnn_tpu_torch.train.loss import one_step_loss
 from sgnn_tpu_torch.train.metrics import MetricLogger
 from sgnn_tpu_torch.utils.device import Device, resolve_device
 from sgnn_tpu_torch.utils.graph_debug import audit_neighbor_list
+from sgnn_tpu_torch.utils.profiling import trace_region
 from sgnn_tpu_torch.utils.resource_monitor import ResourceMonitor
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8  # optax.adam's defaults
+# GraphCast's optimiser (its paper, section 4): AdamW at beta 0.9 / 0.95 and weight decay 0.1,
+# the learning rate warmed up linearly from 0 to lr_init over 1,000 steps, then a half cosine to 0
+# at ntraining_steps
+GRAPHCAST_BETAS = (0.9, 0.95)
+GRAPHCAST_WEIGHT_DECAY = 0.1
+GRAPHCAST_WARMUP_STEPS = 1000
 PREFETCH_DEPTH = 2  # batches staged ahead, as JAX's trainers
 REJECTION_LIMIT = 20  # consecutive rejected log points before a graph-parallel run aborts
-
-
-@dataclass(frozen=True)
-class Family:
-    """What differs between the model families the one trainer runs."""
-
-    title: str  # in the training banner and the rollout summary
-    config_from: Callable  # (cfg, metadata) -> the simulator's config
-    init: Callable  # (sim_cfg, *, generator, device) -> the simulator
-    # (sim, sim_cfg, stats, cfg) -> loss_fn(batch, noise, denom=None) -> (loss, aux); aux holds
-    # train/loss-position and train/loss-strain, which the step's log line prints
-    loss: Callable
-    batcher: Callable  # (cfg, sim_cfg, batch_size) -> the training split's batcher
-    loader: Callable  # (cfg, sim_cfg, split) -> the split's trajectories, one loader item each
-    # (sim_cfg, stats, mode, device) -> rollout(sim, positions, types, strains, node_mask, graph=None):
-    # one loader item's rollout (``graph``: the item's static graph, where its loader gives one)
-    rollout: Callable
-    banner: Callable  # (cfg, sim_cfg) -> the family's words in the training banner
-    # scores a rollout by its per-step RMSE and the rollouts' times (the multi-scale
-    # evaluator), else by the cumulative RMSE
-    per_step: bool = False
-    audit: Optional[Callable] = None  # (batcher, sim_cfg, radius): ``debug_graph``'s audit
-    # graph_parallel: (cfg, sim, sim_cfg, stats, optimizer, noise_gen, mesh, batch_size) -> Training
-    partitioned: Optional[Callable] = None
-    # graph_parallel in predict: (cfg, sim_cfg, stats, loader, device, devices) -> rollout; None ignores it
-    partitioned_predict: Optional[Callable] = None
 
 
 def simulator_config_from(cfg: TrainConfig, metadata: dict) -> SimulatorConfig:
@@ -277,6 +272,44 @@ def make_optimizer(sim: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam:
     return torch.optim.Adam(sim.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
+def roll_particles(rollout: Callable, sim: torch.nn.Module, item: dict) -> dict:
+    """A particle family's rollout of one loader item."""
+    return rollout(sim, item["positions"], item["particle_type"], item["strains"], item["node_mask"],
+                   item.get("graph"))
+
+
+@dataclass(frozen=True)
+class Family:
+    """What differs between the model families the one trainer runs."""
+
+    title: str  # in the training banner and the rollout summary
+    config_from: Callable  # (cfg, metadata) -> the simulator's config
+    init: Callable  # (sim_cfg, *, generator, device) -> the simulator
+    # (sim, sim_cfg, stats, cfg) -> loss_fn(batch, noise, denom=None) -> (loss, aux); aux holds
+    # train/loss-<term> of each of ``terms``, which the step's log line prints
+    loss: Callable
+    batcher: Callable  # (cfg, sim_cfg, batch_size) -> the training split's batcher
+    loader: Callable  # (cfg, sim_cfg, split) -> the split's trajectories, one loader item each
+    # (sim_cfg, stats, mode, device) -> the rollout that ``roll`` calls on one loader item
+    rollout: Callable
+    banner: Callable  # (cfg, sim_cfg) -> the family's words in the training banner
+    # scores a rollout by its per-step RMSE and the rollouts' times (the multi-scale
+    # evaluator), else by the cumulative RMSE
+    per_step: bool = False
+    audit: Optional[Callable] = None  # (batcher, sim_cfg, radius): ``debug_graph``'s audit
+    # graph_parallel: (cfg, sim, sim_cfg, stats, optimizer, noise_gen, mesh, batch_size) -> Training
+    partitioned: Optional[Callable] = None
+    # graph_parallel in predict: (cfg, sim_cfg, stats, loader, device, devices) -> rollout; None ignores it
+    partitioned_predict: Optional[Callable] = None
+    stats: Callable = make_norm_stats  # (metadata, noise_std, device) -> what loss and rollout normalise with
+    schedule: Callable = lr_schedule  # cfg -> sched(step) -> lr
+    optimizer: Callable = make_optimizer  # (sim, cfg) -> the optimizer
+    noisy: bool = True  # each step draws the random-walk input noise
+    # (rollout, sim, loader item) -> outputs: ``rmse_<term>`` (or ``rmse_<term>_per_step``) of each term
+    roll: Callable = roll_particles
+    terms: Tuple[str, ...] = ("position", "strain")  # the loss's parts, logged and scored
+
+
 batch_to_device = to_device  # a host batch on a device: its arrays (and a mesh's) as tensors
 
 
@@ -337,8 +370,9 @@ def make_train_step(
     schedule's argument); ``noise`` replaces the draw from ``generator``
     (the parity tests inject JAX's). Metrics are 0-d tensors left on the
     device."""
-    loss = (family or family_of(cfg)).loss(sim, sim_cfg, stats, cfg)
-    return TrainStep(loss, optimizer, lr_schedule(cfg), cfg.noise_std, generator)
+    family = family or family_of(cfg)
+    loss = family.loss(sim, sim_cfg, stats, cfg)
+    return TrainStep(loss, optimizer, family.schedule(cfg), cfg.noise_std if family.noisy else None, generator)
 
 
 @dataclass
@@ -469,16 +503,16 @@ def build_training(
     check_parallel(cfg)
     metadata = load_metadata(cfg.data_path)
     sim_cfg = family.config_from(cfg, metadata)
-    stats = make_norm_stats(metadata, cfg.noise_std, device=device)
+    stats = family.stats(metadata, cfg.noise_std, device=device)
     sim = family.init(sim_cfg, generator=torch.Generator().manual_seed(cfg.seed), device=device)
-    optimizer = make_optimizer(sim, cfg)
+    optimizer = family.optimizer(sim, cfg)
     noise_gen = torch.Generator(device=device).manual_seed(cfg.seed)
     mesh, batch_size = parallel_mesh(cfg, device, devices), batch_size or cfg.batch_size
     if cfg.graph_parallel > 1:
         return family.partitioned(cfg, sim, sim_cfg, stats, optimizer, noise_gen, mesh, batch_size)
     if mesh is not None:
         step_fn = DataParallelStep(lambda m, d: family.loss(m, sim_cfg, stats.to(d), cfg), sim, mesh, optimizer,
-                                   lr_schedule(cfg), cfg.noise_std, noise_gen)
+                                   family.schedule(cfg), cfg.noise_std, noise_gen)
     else:
         step_fn = make_train_step(sim, sim_cfg, stats, cfg, optimizer, noise_gen, family)
     return Training(sim, sim_cfg, stats, optimizer, step_fn, family.batcher(cfg, sim_cfg, batch_size), mesh)
@@ -524,6 +558,102 @@ def make_mesh_rollout(
     return _rollout
 
 
+def check_graphcast(cfg: TrainConfig) -> None:
+    """GraphCast runs on one device, in f32, without input noise (as
+    published), forecasting autoregressively."""
+    unsupported = {"data_parallel": cfg.data_parallel > 1, "graph_parallel": cfg.graph_parallel > 1,
+                   "remat": check_remat(cfg.remat) is not False, "band_nodes": cfg.band_nodes is not None,
+                   "symmetric_gather": bool(cfg.symmetric_gather), "debug_graph": cfg.debug_graph,
+                   "compute_dtype": cfg.compute_dtype != "float32", "noise_std": cfg.noise_std != 0,
+                   "inference_mode": cfg.inference_mode != "autoregressive"}
+    named = sorted(k for k, v in unsupported.items() if v)
+    if named:
+        raise ValueError(f"architecture graphcast does not take {', '.join(named)}")
+
+
+def graphcast_config_from(cfg: TrainConfig, metadata: dict) -> gc.GraphCastConfig:
+    """GraphCast's config from the run's and the dataset's (``check_graphcast`` first)."""
+    check_graphcast(cfg)
+    return gc.GraphCastConfig(
+        latent_dim=cfg.hidden_dim, num_message_passing_steps=cfg.layers,
+        state_dim=len(metadata["surface_variables"]) + len(metadata["atmospheric_variables"]) * len(
+            metadata["levels"]),
+        forcing_dim=len(metadata["forcing_variables"]), static_dim=len(metadata["static_variables"]),
+        resolution_deg=float(metadata["resolution_deg"]), mesh_refinement=cfg.mesh_refinement,
+        edge_pad_multiple=cfg.edge_pad_multiple,
+        input_frames=cfg.input_sequence_length,
+    )
+
+
+def graphcast_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """GraphCast's: linear warm-up to lr_init, then a half cosine to 0 at ntraining_steps."""
+    warm = GRAPHCAST_WARMUP_STEPS
+
+    def sched(step):
+        if step < warm:
+            return cfg.lr_init * step / warm
+        frac = min(1.0, (step - warm) / max(1, cfg.ntraining_steps - warm))
+        return cfg.lr_init * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+    return sched
+
+
+def graphcast_optimizer(sim: torch.nn.Module, cfg: TrainConfig) -> torch.optim.AdamW:
+    """GraphCast's AdamW, capturable on the card as ``make_optimizer``'s Adam."""
+    lr = graphcast_schedule(cfg)(0)
+    device = next(sim.parameters()).device
+    kw = dict(betas=GRAPHCAST_BETAS, eps=ADAM_EPS, weight_decay=GRAPHCAST_WEIGHT_DECAY)
+    if device.type == "cuda":
+        return torch.optim.AdamW(sim.parameters(), lr=torch.tensor(lr, device=device), capturable=True, **kw)
+    return torch.optim.AdamW(sim.parameters(), lr=lr, **kw)
+
+
+def make_graphcast_loss_fn(sim: gc.GraphCast, sim_cfg: gc.GraphCastConfig, stats: gc.FieldStats,
+                           cfg: TrainConfig) -> Callable:
+    """GraphCast's loss of a batch: each sample's forward over the one
+    static graph, the samples' losses averaged (``noise`` is None)."""
+
+    def loss_fn(batch, noise, denom=None):
+        surf, atm = [], []
+        for b in range(batch["state"].shape[0]):
+            y = gc.predict_residual(sim, stats, batch["state"][b], batch["forcings"][b], batch["static"][b])
+            s, a = gc.loss_terms(stats, y, gc.target_residual(stats, batch["state"][b, -1], batch["target"][b]))
+            surf.append(s)
+            atm.append(a)
+        surf, atm = torch.stack(surf).mean(), torch.stack(atm).mean()
+        return surf + atm, {"train/loss-surface": surf, "train/loss-atmosphere": atm}
+
+    return loss_fn
+
+
+def field_batcher(cfg: TrainConfig, sim_cfg: gc.GraphCastConfig, batch_size: int) -> FieldBatcher:
+    return FieldBatcher(Path(cfg.data_path) / "train.npz", sim_cfg.input_frames, batch_size, seed=cfg.seed)
+
+
+def field_loader(cfg: TrainConfig, sim_cfg: gc.GraphCastConfig, split: str) -> List[dict]:
+    """The split's trajectories, one forecast item each: ``{"state", "forcings", "static", "name"}``."""
+    return [dict(fields, name=name) for name, fields in load_field_split(Path(cfg.data_path) / f"{split}.npz")]
+
+
+def make_graphcast_rollout(sim_cfg: gc.GraphCastConfig, stats: gc.FieldStats, mode: str,
+                           device: torch.device) -> Callable:
+    """The forecast of one loader item: every 6-hour step after the input
+    frames, autoregressively, scored by the latitude-weighted RMSE per step
+    of the surface and of the atmospheric channels (in standard deviations)."""
+
+    def _rollout(sim, item):
+        with torch.no_grad(), trace_region("rollout"):
+            state, forcings, static = (torch.as_tensor(item[k], device=device) for k in ("state", "forcings",
+                                                                                          "static"))
+            pred = gc.rollout(sim, stats, state, forcings, static, state.shape[0] - sim_cfg.input_frames)
+            truth = state[sim_cfg.input_frames:]
+            return {"predicted_rollout": pred, "ground_truth_rollout": truth,
+                    "rmse_surface": gc.lat_weighted_rmse(stats, pred, truth, stats.surface),
+                    "rmse_atmosphere": gc.lat_weighted_rmse(stats, pred, truth, ~stats.surface)}
+
+    return _rollout
+
+
 def make_partitioned_host_rollout(
     mesh: Mesh, sim_cfg: SimulatorConfig, stats: NormStats, spec: PartitionSpec1D, mode: str
 ) -> Callable:
@@ -559,7 +689,15 @@ MESHGRAPHNET = Family(
     banner=lambda cfg, sim_cfg: (f"mesh_slots={sim_cfg.mesh_slots} world_slots={sim_cfg.world_slots} "
                                  f"(search {sim_cfg.world_search_slots})"),
 )
-ARCHITECTURES = {"gns": GNS, "meshgraphnet": MESHGRAPHNET}
+GRAPHCAST = Family(
+    title="graphcast", config_from=graphcast_config_from, init=gc.GraphCast, loss=make_graphcast_loss_fn,
+    batcher=field_batcher, loader=field_loader, rollout=make_graphcast_rollout,
+    banner=lambda cfg, sim_cfg: (f"grid={sim_cfg.resolution_deg}deg mesh_refinement={sim_cfg.mesh_refinement} "
+                                 f"frames={sim_cfg.input_frames}"),
+    stats=gc.field_stats, schedule=graphcast_schedule, optimizer=graphcast_optimizer, noisy=False,
+    roll=lambda rollout, sim, item: rollout(sim, item), terms=("surface", "atmosphere"),
+)
+ARCHITECTURES = {"gns": GNS, "meshgraphnet": MESHGRAPHNET, "graphcast": GRAPHCAST}
 
 
 def family_of(cfg: TrainConfig) -> Family:
@@ -571,24 +709,23 @@ def family_of(cfg: TrainConfig) -> Family:
 
 def evaluate_split(sim: torch.nn.Module, loader, rollout: Callable, family: Family):
     """Roll out every trajectory of the loader; (per-case outputs, summary).
-    The summary scores total, position and strain at the last step and
-    one_step at the first: by the cumulative RMSE, or for a ``per_step``
+    The summary scores total and each of the family's terms (position and
+    strain) at the last step and one_step at the first: by the cumulative RMSE, or for a ``per_step``
     family by the per-step RMSE, with the rollouts' mean_time and std_time
     (the JAX multi-scale evaluator)."""
     suffix = "_per_step" if family.per_step else ""
-    outputs, losses = [], {"total": [], "position": [], "strain": [], "one_step": []}
+    outputs, losses = [], {"total": [], **{t: [] for t in family.terms}, "one_step": []}
     for traj in loader:
         t0 = time.perf_counter()
-        out = rollout(sim, traj["positions"], traj["particle_type"], traj["strains"], traj["node_mask"],
-                      traj.get("graph"))
+        out = family.roll(rollout, sim, traj)
         out = {k: v.cpu().numpy() for k, v in out.items()}  # waits for the device
         out["run_time"] = time.perf_counter() - t0
         outputs.append(out)
-        pos, strain = out["rmse_position" + suffix], out["rmse_strain" + suffix]
-        losses["position"].append(pos[-1])
-        losses["strain"].append(strain[-1])
-        losses["total"].append(pos[-1] + strain[-1])
-        losses["one_step"].append(pos[0] + strain[0])
+        rmse = [out[f"rmse_{t}{suffix}"] for t in family.terms]
+        for t, r in zip(family.terms, rmse):
+            losses[t].append(r[-1])
+        losses["total"].append(sum(r[-1] for r in rmse))
+        losses["one_step"].append(sum(r[0] for r in rmse))
     summary = {k: float(np.mean(v)) for k, v in losses.items() if v}
     if family.per_step and outputs:
         times = [o["run_time"] for o in outputs]
@@ -629,7 +766,7 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
     if cfg.data_parallel > 1:
         print(f"data-parallel over {cfg.data_parallel} replicas")
     monitor = ResourceMonitor(dev)
-    sched = lr_schedule(cfg)
+    sched = family.schedule(cfg)
     rejection_tracker = RejectionTracker(limit=REJECTION_LIMIT)
     print(
         f"{family.title} training: {family.banner(cfg, sim_cfg)} layers={cfg.layers} hidden={cfg.hidden_dim} "
@@ -657,11 +794,8 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
                 t_last = time.perf_counter()
                 metrics["train/step_time_s"] = dt
                 logger.log(metrics, step)
-                print(
-                    f"step {step}: loss={metrics['train/loss']:.6f} "
-                    f"pos={metrics['train/loss-position']:.6f} "
-                    f"strain={metrics['train/loss-strain']:.6f} ({dt * 1e3:.1f} ms/step)"
-                )
+                terms = " ".join(f"{t}={metrics[f'train/loss-{t}']:.6f}" for t in family.terms)
+                print(f"step {step}: loss={metrics['train/loss']:.6f} {terms} ({dt * 1e3:.1f} ms/step)")
                 if metrics.get("train/halo_violations", 0) > 0:
                     print(
                         "  NOTE: halo-contract violations this step — the noisy sample geometry "
@@ -690,8 +824,7 @@ def train(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence] =
                     continue
                 logged = {
                     "val/loss": summary["total"],
-                    "val/loss-position": summary["position"],
-                    "val/loss-strain": summary["strain"],
+                    **{f"val/loss-{t}": summary[t] for t in family.terms},
                     "val/rmse-oneStep": summary["one_step"],
                     "val/runtime": val_stats["elapsed_time"],
                     "val/vram_mb": val_stats["max_memory_mb"],
@@ -732,7 +865,7 @@ def predict(cfg: TrainConfig, device: Device = None, devices: Optional[Sequence]
     family = family or family_of(cfg)
     metadata = load_metadata(cfg.data_path)
     sim_cfg = family.config_from(cfg, metadata)
-    stats = make_norm_stats(metadata, cfg.noise_std, device=dev)
+    stats = family.stats(metadata, cfg.noise_std, device=dev)
 
     if cfg.model_file is None:
         print("error: valid/rollout modes require model_file", file=sys.stderr)

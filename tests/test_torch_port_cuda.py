@@ -1026,3 +1026,85 @@ def test_banded_index_gathers_equal_plain_on_the_card(cuda):
         out = rg.row_gather_take(table.to(cuda), card)
         assert torch.equal(out.cpu(), table[cpu])
     assert torch.equal(sg.forward_banded_index(send.reshape(-1), n, w), send.reshape(-1))
+
+
+# --- GraphCast (models/graphcast.py) at small widths ------------------------------------
+
+# |error| of the f32 products against f64 over the sum of the terms' sizes: 3xTF32 terms summed in
+# f32 over K <= 512 (the forward and input gradient), over up to 20,000 rows (the weight gradient)
+GC_ROWS_RTOL = 1e-5
+GC_SUM_RTOL = 2e-5
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 4, 512), (4096, 186, 512), (4096, 512, 512), (4096, 512, 83),
+                                   (20000, 512, 512)], ids=["edge_enc", "grid_enc", "hidden", "decoder", "wide_sum"])
+def test_graphcast_products_match_f64(cuda, m, k, n):
+    """``linear`` at GraphCast's widths (its encoders' 4 and 186 inputs, the 512-deep hidden products on
+    the mma.sync rows kernel, the 83-wide decoder): output and the three gradients against f64."""
+    from sgnn_tpu_torch.ops import f32_product as fp
+
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g).to(cuda).requires_grad_(True)
+    w = (torch.randn(n, k, generator=g) / k ** 0.5).to(cuda).t().requires_grad_(True)
+    b = (torch.randn(n, generator=g) * 0.1).to(cuda).requires_grad_(True)
+    cot = torch.randn(m, n, generator=g).to(cuda)
+    before = dict(fp.LAUNCHES)
+    y = fp.linear(x, w, b)
+    y.backward(cot)
+    torch.cuda.synchronize()
+    assert {key: fp.LAUNCHES[key] - before[key] for key in before} == dict.fromkeys(fp.LAUNCHES, 1)
+    x64, w64, c64 = x.detach().double(), w.detach().double(), cot.double()
+
+    def within(got, want, terms, rtol):
+        assert float(((got.double() - want).abs() / (rtol * terms + 1e-30)).max()) <= 1.0
+
+    within(y.detach(), x64 @ w64 + b.detach().double(), x64.abs() @ w64.abs() + b.detach().double().abs(),
+           GC_ROWS_RTOL)
+    within(x.grad, c64 @ w64.t(), c64.abs() @ w64.abs().t(), GC_ROWS_RTOL)
+    within(w.grad, x64.t() @ c64, x64.abs().t() @ c64.abs(), GC_SUM_RTOL)
+    within(b.grad, c64.sum(0), c64.abs().sum(0), GC_SUM_RTOL)
+
+
+def test_graphcast_sorted_sum_over_a_700_id_run(cuda):
+    """The COO sum at a pole's skew: one receiver takes a run of 700 ids (across six 128-id chunks,
+    joined by the combine kernel) among receivers of degree 1-30, 2 KB rows: bit for bit the plain sum."""
+    g = torch.Generator().manual_seed(7)
+    degrees = torch.randint(1, 31, (400,), generator=g)
+    degrees[123] = 700
+    idx = torch.repeat_interleave(torch.arange(400), degrees).to(torch.int32).to(cuda)
+    data = torch.randn(len(idx), 512, generator=g).to(cuda)
+    got = rg.sorted_segment_sum(data, idx, 400)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rg.sorted_segment_sum_reference(data, idx, 400))
+    assert torch.equal(got, rg.sorted_segment_sum(data, idx, 400))
+
+
+def test_graphcast_captured_training_equals_eager(cuda, tmp_path):
+    """GraphCast at a 10 degree grid, mesh level 2, latent 32: 5 steps of the captured TrainStep
+    (warm-up, capture, 4 replays; no noise drawn; capturable AdamW) against the eager loop, torch.equal
+    on every metric, parameter and AdamW moment."""
+    from h100_bench import graphcast_data
+    from sgnn_tpu_torch.train import train as ttrain
+    from sgnn_tpu_torch.train.config import TrainConfig
+
+    spec = dict(resolution_deg=10.0, levels=[300, 500, 850], atmospheric_variables=["temperature", "geopotential"],
+                frames=8, data_seed=7)
+    graphcast_data.prepare(spec, tmp_path / "data")
+    cfg = TrainConfig(architecture="graphcast", data_path=str(tmp_path / "data"), model_path=str(tmp_path / "m"),
+                      layers=2, hidden_dim=32, input_sequence_length=2, mesh_refinement=2, edge_pad_multiple=64,
+                      batch_size=1, noise_std=0.0, lr_init=0.05, seed=0)
+    built = ttrain.build_training(cfg, cuda)
+    source = built.batcher.epochs()
+    batches = [ttrain.batch_to_device(next(source), cuda) for _ in range(5)]
+    del built
+    runs = []
+    for capture in (True, False):
+        built = ttrain.build_training(cfg, cuda)
+        built.step_fn.capture = capture
+        metrics = [{k: v.clone() for k, v in built.step_fn(b, 1001 + i).items()} for i, b in enumerate(batches)]
+        params = {k: v.clone() for k, v in built.sim.state_dict().items()}
+        adam = [{k: v.clone() for k, v in st.items()} for st in built.optimizer.state.values()]
+        assert built.step_fn.z is None and (built.step_fn.replays == 4) == capture
+        built.step_fn.close()
+        runs.append((metrics, params, adam))
+    _assert_same_training(*runs)

@@ -1,10 +1,11 @@
 """The one trainer over the model families, on the CPU.
 
-``train``, ``predict`` and a resumed ``train`` for each of the three
-families (``train/train.py``'s ``GNS`` and ``MESHGRAPHNET``, picked by
-``cfg.architecture``; ``train_multi_scale.MULTI_SCALE`` through its entry
-point), each on the dataset and config of its own tests; and a family
-defined here that trains, validates and predicts through the same loop.
+``train``, ``predict`` and a resumed ``train`` for each of the four
+families (``train/train.py``'s ``GNS``, ``MESHGRAPHNET`` and
+``GRAPHCAST``, picked by ``cfg.architecture``;
+``train_multi_scale.MULTI_SCALE`` through its entry point), each on the
+dataset and config of its own tests; and a family defined here that
+trains, validates and predicts through the same loop.
 """
 
 import json
@@ -20,6 +21,8 @@ from sgnn_tpu_torch.train import train_multi_scale as ttms
 from sgnn_tpu_torch.train.checkpoint import CheckpointManager
 from sgnn_tpu_torch.train.loss import one_step_loss
 
+from test_torch_port_graphcast import fields  # noqa: F401 (the GraphCast dataset fixture)
+from test_torch_port_graphcast import graphcast_config
 from test_torch_port_mgn import _config as mgn_config
 from test_torch_port_mgn import env  # noqa: F401 (the MeshGraphNets dataset fixture)
 from test_torch_port_ms_train import tiny  # noqa: F401 (the multi-scale dataset fixture)
@@ -54,6 +57,8 @@ FLOWS = {
                          # over 100 steps, falling only on the whole
                          falls=False),
     "multi_scale": Flow(ttms, "tiny", ms_config, 40, dict(ntraining_steps=50, nsave_steps=10), "_multi_scale_gnn."),
+    "graphcast": Flow(ttrain, "fields", lambda d, **kw: graphcast_config(d[0], **kw), 40,
+                      dict(ntraining_steps=50, nsave_steps=10), "m2m_blocks.1.edge_fn.0.NN-0.weight"),
 }
 CASES = [(f, phase) for f in FLOWS for phase in ("train", "predict", "resume")]
 
@@ -82,8 +87,8 @@ def trained(request):
 @pytest.mark.parametrize("name,phase", CASES, ids=[f"{f}-{p}" for f, p in CASES])
 def test_train_predict_resume(trained, name, phase, capsys):
     """train: the steps run, the loss falls, a best checkpoint of the
-    family's model, the train and validation keys of every family (and the
-    multi-scale rollouts' times); predict: the family's summary from that
+    family's model, the train and validation keys of every family (each of
+    its loss terms; the multi-scale rollouts' times); predict: the family's summary from that
     checkpoint, one rollout pickle; resume: from that checkpoint to more
     steps."""
     flow = FLOWS[name]
@@ -100,16 +105,17 @@ def test_train_predict_resume(trained, name, phase, capsys):
         tl = [line["train/loss"] for line in lines if "train/loss" in line]
         assert len(tl) == flow.steps // flow.config(dataset).log_every and all(np.isfinite(tl))
         assert tl[-1] < tl[0] or not flow.falls, f"loss did not decrease: {tl[0]} -> {tl[-1]}"
-        assert {"train/loss-position", "train/loss-strain", "lr", "train/step_time_s", "train/vram_mb"} <= set(lines[0])
+        terms = {f"train/loss-{t}" for t in family.terms}
+        assert terms | {"lr", "train/step_time_s", "train/vram_mb"} <= set(lines[0])
         val = [line for line in lines if "val/loss" in line]
         assert len(val) == flow.steps // flow.config(dataset).nsave_steps
-        want = {"val/loss-position", "val/loss-strain", "val/rmse-oneStep", "val/runtime", "val/vram_mb"}
+        want = {f"val/loss-{t}" for t in family.terms} | {"val/rmse-oneStep", "val/runtime", "val/vram_mb"}
         assert want | ({"val/mean_time", "val/std_time"} if family.per_step else set()) <= set(val[0])
     elif phase == "predict":
         summary = flow.entry.predict(flow.config(dataset, mode="rollout", model_file=meta["path"]), device="cpu")
         assert np.isfinite(summary["total"])
         times = {"mean_time", "std_time"} if family.per_step else set()
-        assert set(summary) == {"total", "position", "strain", "one_step"} | times
+        assert set(summary) == {"total", *family.terms, "one_step"} | times
         assert f"{family.title} rollout summary (cpu)" in capsys.readouterr().out
         assert len(list((_run_dir(dataset) / "rollouts" / run.name).glob("*.pkl"))) == 1
     else:

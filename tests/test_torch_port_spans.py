@@ -3,8 +3,8 @@ nothing is recorded, allocated or timed; on (a ``torch.profiler`` profile
 active), names, nesting, parents and roots; spans of the prefetcher's
 thread, paired with the consumer's by sequence number; the records on the
 exported trace's clock; ``stop_trace`` merging both threads' records; the
-spans of a tiny single-scale and multi-scale request; many threads at once;
-the bounded buffer."""
+spans of a tiny single-scale and multi-scale request and of a tiny
+GraphCast graph build; many threads at once; the bounded buffer."""
 
 import itertools
 import json
@@ -24,6 +24,7 @@ from sgnn_tpu_torch.physics import multi_scale_simulator as tms
 from sgnn_tpu_torch.physics import simulator as tsim
 from sgnn_tpu_torch.physics.multi_scale_graph import create_all_edges
 from sgnn_tpu_torch.physics.rollout import rollout
+from sgnn_tpu_torch.physics.sphere_graph import build_graph
 from sgnn_tpu_torch.utils import profiling
 from sgnn_tpu_torch.utils.profiling import trace_region
 
@@ -288,6 +289,21 @@ def test_a_tiny_multi_scale_request_gives_its_spans(tmp_path):
     assert layout.attrs["padded_slot_rows"] == dense_slot_rows(
         {"g2m": item["graph"].g2m.senders.shape + (0, 0), "m2g": item["graph"].m2g.senders.shape + (0, 0),
          "m2m": [de.senders.shape + (0, 0) for de in item["graph"].m2m]}, 6)
+
+
+def test_a_tiny_graphcast_build_gives_its_spans_and_edge_counts():
+    """GraphCast's graphs at a 10 degree grid and mesh level 2: the four
+    ``graph.*`` spans with their nodes, edges and largest in-degree; the
+    counter holds each stage's valid edges and padded rows (multiples of 64)."""
+    with _profile():
+        g = build_graph(10.0, 2, 0.6, 64)
+    spans = {s.name: s.attrs for s in profiling.spans() if s.name.startswith("graph.")}
+    assert spans["graph.grid"] == {"nodes": 684, "edges": 0, "max_in_degree": 0}
+    # the 12 icosahedron vertices have 5 neighbours at each of the 3 levels
+    assert spans["graph.multimesh"] == {"nodes": 162, "edges": 1260, "max_in_degree": 15}
+    assert spans["graph.g2m"]["nodes"] == 162 and spans["graph.g2m"]["edges"] == g.edge_counts["g2m"][0]
+    assert spans["graph.m2g"] == {"nodes": 684, "edges": 3 * 684, "max_in_degree": 3}
+    assert g.edge_counts["m2m"] == (1260, 1280) and g.edge_counts["m2g"] == (2052, 2112)
 
 
 def test_many_threads_record_at_once():
